@@ -1,0 +1,1 @@
+"""Framework-neutral helpers the port keeps its own copies of."""
