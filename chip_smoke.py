@@ -14,6 +14,19 @@ failing the run (non-zero exit, no result line) on a miss:
    stated per case; then times at the decode shape: the kernel, the
    plain version, ``scaled_dot_product_attention`` over K/V pre-gathered
    to the dense layout (a yardstick the port never calls) and the bound;
+   the int8-pool, f32-compute cases (one with an idle row) are also held
+   to a float64 evaluation, and both versions' errors against it printed;
+3b. flash — the forward, dQ and dK/dV kernels (``csrc/flash_attention.cu``)
+   against their plain versions, row by row (``FLASH_ROW_TOL``, with a
+   deliberately wrong control that must be refused), in bf16 and f32 on
+   four cases (causal; causal with packed documents and a repeated id;
+   non-causal with a ``kv_mask`` and a fully masked batch row; a ragged
+   T=200 at d=64),
+   then at the train step's shape (16 x 8 heads, T=2048, d=128, causal,
+   bf16): checked, timed against the plain versions, the bound and
+   ``scaled_dot_product_attention`` (forward, backward; timed only); and
+   kernels and plain versions against float64 at T=2048, d=128 (relative
+   L2; the kernels within ``FLASH_F64_RATIO`` x the plain version's);
 4. serving — ``service.inference.build_engine("llama3_8b")`` at full
    width and depth (bf16, random weights from a seed) answers 8 requests
    (128-512-token prompts, two sharing a 256-token prefix, 32 new tokens
@@ -26,13 +39,26 @@ failing the run (non-zero exit, no result line) on a miss:
    token it emitted is within ``GAP_TOL_BF16`` of the best logit of the
    oracle's dense path fed the same tokens (teacher forcing);
 5. small — the tiny config in f32 on the card: engine (through the
-   kernel) against the oracle, under the same rule at ``GAP_TOL_F32``.
+   kernel) against the oracle, under the same rule at ``GAP_TOL_F32``;
+6. train — ``lzy_tpu_torch.train``'s bench config (the ~350M Llama the
+   repo's headline measures: batch 16 x 2048, bf16 compute, f32 master
+   params, per-layer remat, fused CE, flash kernels, AdamW): step-0 loss
+   and gradients against the same weights through the plain attention
+   path, both also against the plain path computing in f32 (limits
+   ``TRAIN_LOSS_TOL``, ``TRAIN_GRAD_TOL``, ``TRAIN_F32_RATIO``), then
+   warmup and timed steps through ``parallel.train.make_train_step``
+   with the flash launch counts reset just before and read just after
+   (2 forward, 1 dQ and 1 dK/dV launch per layer and step under remat);
+   the loss must be finite and fall. Prints step time, tokens/s and MFU
+   against the H100 SXM's dense bf16 peak.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Long detail goes to stderr.
 """
 
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -100,10 +126,13 @@ def build_phase():
 # -- kernel phase ----------------------------------------------------------
 
 
-def _kernel_inputs(torch, *, t, dtype, quant, lengths, n_blocks, seed):
+def _kernel_inputs(torch, *, t, dtype, quant, lengths, n_blocks, seed,
+                   idle_last=False):
     """Llama-3-8B attention shapes: q [B, T, 32, 128], pools [N, 16, 8,
     128], per-row page tables over distinct random blocks (scattered
-    through the pool), positions ending at ``lengths``."""
+    through the pool), positions ending at ``lengths``. ``idle_last``: the
+    last row is idle, as the engine leaves a free slot: an all-scratch
+    table (block 0) read up to the table's last position."""
     from lzy_tpu_torch.ops import paged_attention as pa
 
     dev = torch.device("cuda")
@@ -123,6 +152,9 @@ def _kernel_inputs(torch, *, t, dtype, quant, lengths, n_blocks, seed):
         at += need
     pos = (torch.tensor(lengths, device=dev)[:, None] - t
            + torch.arange(t, device=dev)[None, :]).to(torch.int32)
+    if idle_last:
+        table[-1] = 0
+        pos[-1] = pages * PAGE - t + torch.arange(t, device=dev)
     side = None
     if quant:
         kq, ks, kz = pa.quantize_kv(k)
@@ -221,6 +253,31 @@ def _library_call(torch, inp, lengths):
         qh, kh, vh, attn_mask=mask, enable_gqa=True)
 
 
+def _f64_attention(torch, inp):
+    """The paged case evaluated in float64: the same gather and the same
+    f32 dequantization (what both versions compute from), then scores,
+    softmax and P.V in f64."""
+    from lzy_tpu_torch.ops.paged_attention import dequantize_kv
+
+    q, k, v, table, pos = (inp[x] for x in ("q", "k", "v", "table", "pos"))
+    pt = table.long()
+    keys, vals = k[pt], v[pt]
+    if inp["side"] is not None:
+        s = inp["side"]
+        keys = dequantize_kv(keys, s.k_scale[pt], s.k_zp[pt], torch.float32)
+        vals = dequantize_kv(vals, s.v_scale[pt], s.v_zp[pt], torch.float32)
+    b, t, h, d = q.shape
+    kv = keys.shape[-2]
+    keys = keys.reshape(b, -1, kv, d).double()
+    vals = vals.reshape(b, -1, kv, d).double()
+    qg = q.double().reshape(b, t, kv, h // kv, d)
+    sc = torch.einsum("btkgd,blkd->bkgtl", qg, keys) * d ** -0.5
+    visible = (torch.arange(keys.shape[1], device=q.device)
+               <= pos[:, None, None, :, None])
+    p = torch.softmax(sc.masked_fill(~visible, float("-inf")), dim=-1)
+    return torch.einsum("bkgtl,blkd->btkgd", p, vals)
+
+
 KERNEL_CASES = [
     # (name, T, dtype, int8 pool, visible lengths per row)
     ("decode-bf16", 1, "bfloat16", False,
@@ -230,6 +287,11 @@ KERNEL_CASES = [
     ("decode-f32", 1, "float32", False,
      [1500, 700, 320, 1100, 150, 410, 980, 530]),
     ("decode-int8-f32", 1, "float32", True,
+     [1500, 700, 320, 1100, 150, 410, 980, 530]),
+    # the int8-pool, f32-compute case with an idle row (8192 reads of
+    # scratch block 0's 16 slots): held to f64 as well as to the plain
+    # version; correctness only, not timed
+    ("decode-int8-f32-idle", 1, "float32", True,
      [1500, 700, 320, 1100, 150, 410, 980, 530]),
     ("verify-bf16", GAMMA + 1, "bfloat16", False,
      [1300, 600, 260, 900, 180, 450, 700, 333]),
@@ -248,11 +310,13 @@ def kernel_phase(torch):
     torch.backends.cudnn.allow_tf32 = False
     n_blocks = 1024
     worst = 0.0
-    rows = []
+    rows, f64_rows = [], []
     decode = None
     for i, (name, t, dtype, quant, lengths) in enumerate(KERNEL_CASES):
+        idle = name.endswith("-idle")
         inp = _kernel_inputs(torch, t=t, dtype=dtype, quant=quant,
-                             lengths=lengths, n_blocks=n_blocks, seed=i)
+                             lengths=lengths, n_blocks=n_blocks, seed=i,
+                             idle_last=idle)
         args = (inp["q"], inp["k"], inp["v"], inp["table"], inp["pos"])
         kw = dict(dtype=inp["cdt"], quant=inp["side"])
         got = pa.paged_attention(*args, **kw)
@@ -267,9 +331,19 @@ def kernel_phase(torch):
         ok = bool((err <= limit).all())
         log(f"kernel {name}: max_abs_err {max_err:.3e} (tol {atol:g} + "
             f"{rtol:g}*|plain|) {'ok' if ok else 'MISS'}")
+        if dtype == "float32" and quant:
+            # which of the two is farther from the exact value
+            exact = _f64_attention(torch, inp)
+            f64 = {"kernel": float((got.double() - exact).abs().max()),
+                   "plain": float((want.double() - exact).abs().max())}
+            log(f"  {name} vs float64: kernel {f64['kernel']:.3e}, plain "
+                f"{f64['plain']:.3e}")
+            f64_rows.append(dict(case=name, **f64))
         if not ok:
             fail(f"kernel {name} disagrees with its plain version")
         worst = max(worst, max_err)
+        if idle:
+            continue
         ms = _time_ms(torch, lambda: pa.paged_attention(*args, **kw))
         plain_ms = _time_ms(torch,
                             lambda: pa.paged_attention_plain(*args, **kw),
@@ -283,7 +357,7 @@ def kernel_phase(torch):
         log("  " + json.dumps(row))
         if name == "decode-bf16":
             decode = row
-    return worst, decode, rows
+    return worst, decode, rows, f64_rows
 
 
 # -- serving phase ---------------------------------------------------------
@@ -490,6 +564,430 @@ def small_phase(torch):
         log(f"small: prompt of {len(prompt)}: {steps}/24 steps compared")
 
 
+# -- flash kernel phase ------------------------------------------------------
+
+#: kernel vs plain version on the same inputs, row by row: for each row of
+#: an output (one query's O or dQ, one key's dK or dV: d values), the L2
+#: distance over the plain row's L2 norm, worst over all rows. Per row
+#: and not against max|plain|: causal gradients are largest in the first
+#: rows, which see one or two keys, and far smaller in deep rows, which
+#: average over ~T keys, so a limit scaled by the largest element passes a
+#: deep row that is wrong by tens of percent (the control below shows it).
+#: f32: both sides sum f32 products in other orders (the kernel by FMA in
+#: k order, the plain version through cuBLAS). bf16: both round the output
+#: to bf16 (2^-9 relative at most per element); the kernel also rounds P
+#: and dS to bf16 before the second product (the tensor cores take bf16)
+#: where the plain version keeps them in f32. Measured worst rows over all
+#: cases and the bench shape (NVIDIA H100 80GB HBM3, 700 W): bf16 5.3e-3,
+#: f32 3.5e-6; limits about 3x and 6x above
+FLASH_ROW_TOL = {"float32": 2e-5, "bfloat16": 1.5e-2}
+#: a row whose plain norm is under this fraction of the rms row norm is
+#: held against that fraction instead: a query whose only visible key is
+#: itself has dQ = 0 in exact arithmetic (P = 1, so dP - delta cancels),
+#: and either side's value there is rounding noise. Rows that see nothing
+#: at all are checked to be exactly zero on their own
+FLASH_ROW_FLOOR = 1e-2
+#: the control at the bench shape: the kernels' own outputs with every row
+#: past the first 128 scaled by this (3% wrong on the deep rows); the row
+#: rule must refuse it, and the log says what a limit of 1e-2*max|plain| +
+#: 2e-2*|plain| per element would have said
+FLASH_CONTROL_SCALE = 1.03
+FLASH_CASES = [
+    # (name, b, h, t, d, causal, kv_mask, segments)
+    ("causal", 2, 8, 1024, 128, True, False, False),
+    ("segments", 2, 8, 1024, 128, True, False, True),
+    ("kv_mask", 2, 8, 768, 128, False, True, False),
+    ("ragged", 2, 4, 200, 64, True, False, False),
+]
+#: the train step's attention shape: batch 16 x 8 heads, seq 2048, d 128
+BENCH_FLASH = ("bench", 16, 8, 2048, 128, True, False, False)
+
+
+def _flash_inputs(torch, case, dtype, seed):
+    from lzy_tpu_torch.ops import flash_attention as fa
+
+    _, b, h, t, d, causal, mask, seg = case
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cdt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device=dev)
+                   .to(cdt) for _ in range(4))
+    kv_mask = segments = None
+    if mask:                       # the last batch row sees no key at all
+        kv_mask = torch.rand((b, t), generator=gen, device=dev) < 0.7
+        kv_mask[-1] = False
+    if seg:                        # three documents; id 0 comes back
+        segments = torch.zeros((b, t), dtype=torch.int32, device=dev)
+        segments[:, t // 5:t // 2] = 1
+        segments[:, 2 * t // 3:] = 2
+    bias, bounds = fa._mask_operands(q, kv_mask, segments)
+    return dict(q=q, k=k, v=v, do=do, bias=bias, bounds=bounds,
+                causal=causal, scale=d ** -0.5)
+
+
+def _flash_rows(got, want):
+    """``got`` against ``want`` in float64: the worst row's relative L2
+    (under ``FLASH_ROW_FLOOR``), the whole tensor's relative L2,
+    rms|want| and the largest absolute error."""
+    g = got.double().reshape(-1, got.shape[-1])
+    w = want.double().reshape(-1, want.shape[-1])
+    err, norm = (g - w).norm(dim=-1), w.norm(dim=-1)
+    floor = FLASH_ROW_FLOOR * float(norm.pow(2).mean().sqrt())
+    worst = float((err / norm.clamp_min(max(floor, 1e-30))).max())
+    return {"row_rel": worst, "rel_l2": float(err.norm() / norm.norm()),
+            "rms_plain": float(w.pow(2).mean().sqrt()),
+            "max_abs": float((g - w).abs().max())}
+
+
+def _flash_err(got, want, dtype, what):
+    r = _flash_rows(got, want)
+    if not r["row_rel"] <= FLASH_ROW_TOL[dtype]:
+        fail(f"flash {what}: worst row relative L2 {r['row_rel']:.3e} over "
+             f"the limit {FLASH_ROW_TOL[dtype]:g} (rms|plain| "
+             f"{r['rms_plain']:.3e}, max abs err {r['max_abs']:.3e})")
+    return r
+
+
+def _flash_control(torch, outs):
+    """The row rule against a deliberately wrong output: each bench
+    output with its rows past the first 128 scaled by
+    ``FLASH_CONTROL_SCALE``."""
+    seen = {}
+    for what, (got, want) in outs.items():
+        bad = got.clone()
+        bad[..., 128:, :] *= FLASH_CONTROL_SCALE
+        r = _flash_rows(bad, want)
+        if r["row_rel"] <= FLASH_ROW_TOL["bfloat16"]:
+            fail(f"flash control {what}: rows 3% wrong pass the row rule "
+                 f"({r['row_rel']:.3e} <= {FLASH_ROW_TOL['bfloat16']:g})")
+        w = want.float()
+        per_element = bool(((bad.float() - w).abs()
+                            <= 1e-2 * w.abs().max() + 2e-2 * w.abs()).all())
+        seen[what] = {"row_rel": r["row_rel"],
+                      "max_plain": float(w.abs().max()),
+                      "rms_plain": r["rms_plain"],
+                      "max_based_rule": "passes" if per_element
+                      else "refuses"}
+    log(f"flash control (rows past 128 x{FLASH_CONTROL_SCALE}), refused "
+        f"by the row rule: "
+        + json.dumps(seen))
+    return seen
+
+
+def _flash_check(torch, inp, dtype, name):
+    """Forward, dQ and dK/dV kernels against the plain versions on the
+    same inputs (the backward from the kernel's own O and lse on both
+    sides). Returns the readings of O, dQ, dK and dV and the pairs
+    (kernel, plain) they were taken from."""
+    from lzy_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = inp["q"], inp["k"], inp["v"], inp["do"]
+    args = (q, k, v, inp["bias"], inp["bounds"])
+    kw = dict(scale=inp["scale"], causal=inp["causal"])
+    o, lse = fa.flash_fwd(*args, **kw)
+    delta = fa.flash_delta(o, do)
+    dq = fa.flash_bwd_dq(*args, lse, delta, do, **kw)
+    dk, dv = fa.flash_bwd_dkv(*args, lse, delta, do, **kw)
+    torch.cuda.synchronize()
+    for x in (o, dq, dk, dv):
+        if not torch.isfinite(x).all():
+            fail(f"flash {name}: non-finite kernel output")
+    want_o, want_lse = fa._fwd_plain(*args, inp["scale"], inp["causal"])
+    want = fa._bwd_plain_from_delta(*args, lse, delta, do, inp["scale"],
+                                    inp["causal"])
+    outs = {"o": (o, want_o), "dq": (dq, want[0]), "dk": (dk, want[1]),
+            "dv": (dv, want[2])}
+    errs = {what: _flash_err(got, ref, dtype, f"{name} {what}")
+            for what, (got, ref) in outs.items()}
+    # lse: f32 logsumexp of O(10) scores on both sides; empty rows -1e30
+    live = want_lse > -1e29
+    if not torch.equal(live, lse > -1e29) or float(
+            (lse - want_lse)[live].abs().max()) > 1e-4:
+        fail(f"flash {name}: lse differs from the plain version's")
+    if inp["bias"] is not None:    # the fully masked batch row
+        if o[-1].abs().max() or dq[-1].abs().max() or dk[-1].abs().max() \
+                or dv[-1].abs().max():
+            fail(f"flash {name}: an empty row has non-zero output or grads")
+    return errs, outs
+
+
+#: against a float64 evaluation (relative L2), the kernels may be at most
+#: this many times farther than the plain version: both round their
+#: outputs to bf16 (2^-8); the kernels also round P and dS to bf16 before
+#: the tensor-core products (2^-9), which measured 1.3-1.4x at this shape
+FLASH_F64_RATIO = 2.0
+F64_FLASH = ("f64", 2, 8, 2048, 128, True, False, False)
+
+
+def _flash_f64(torch):
+    """Kernel and plain version against float64 at the train shape's T
+    and d (2 x 8 heads): relative L2 of O, dQ, dK and dV."""
+    from lzy_tpu_torch.ops import flash_attention as fa
+
+    inp = _flash_inputs(torch, F64_FLASH, "bfloat16", 7)
+    q, k, v, do, scale = (inp[x] for x in ("q", "k", "v", "do", "scale"))
+    args = (q, k, v, None, None)
+    o, lse = fa.flash_fwd(*args, scale=scale, causal=True)
+    delta = fa.flash_delta(o, do)
+    kernel = (o, fa.flash_bwd_dq(*args, lse, delta, do, scale=scale,
+                                 causal=True),
+              *fa.flash_bwd_dkv(*args, lse, delta, do, scale=scale,
+                                causal=True))
+    po, plse = fa._fwd_plain(*args, scale, True)
+    plain = (po, *fa._bwd_plain(*args, po, plse, do, scale, True))
+    q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+    t = q.shape[2]
+    causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax((q64 @ k64.transpose(-1, -2) * scale)
+                      .masked_fill(~causal, float("-inf")), dim=-1)
+    o64 = p @ v64
+    ds = p * (do64 @ v64.transpose(-1, -2)
+              - (do64 * o64).sum(-1, keepdim=True)) * scale
+    exact = (o64, ds @ k64, ds.transpose(-1, -2) @ q64,
+             p.transpose(-1, -2) @ do64)
+    del p, ds
+    rows = {}
+    for name, got, ref, want in zip(("o", "dq", "dk", "dv"), kernel, plain,
+                                    exact):
+        rel = [float((x.double() - want).norm() / want.norm())
+               for x in (got, ref)]
+        rows[name] = {"kernel": rel[0], "plain": rel[1]}
+        if rel[0] > FLASH_F64_RATIO * rel[1]:
+            fail(f"flash vs float64: {name} relative L2 {rel[0]:.3e}, over "
+                 f"{FLASH_F64_RATIO} x the plain version's {rel[1]:.3e}")
+    log("flash vs float64 (relative L2): " + ", ".join(
+        f"{n} kernel {r['kernel']:.2e} plain {r['plain']:.2e}"
+        for n, r in rows.items()))
+    return rows
+
+
+def _flash_bound(case):
+    """Least time per kernel at the causal bench shape: every visible
+    (query, key) pair costs 2 FLOPs per head-dim element per product (2
+    products forward, 3 for dQ, 4 for dK/dV) at the dense bf16 peak;
+    bytes are each input read once and each output written once."""
+    _, b, h, t, d, _, _, _ = case
+    pairs = b * h * t * (t + 1) // 2
+    elems, rows = b * h * t * d, b * h * t
+    bounds = {}
+    for kernel, products, nbytes in (
+            ("fwd", 2, 4 * elems * 2 + rows * 4),
+            ("dq", 3, 5 * elems * 2 + 2 * rows * 4),
+            ("dkv", 4, 6 * elems * 2 + 2 * rows * 4)):
+        by_ops = 2 * products * pairs * d / BF16_FLOPS
+        by_bytes = nbytes / HBM_BYTES_PER_S
+        bounds[kernel] = (max(by_ops, by_bytes) * 1e3,
+                          "operations" if by_ops >= by_bytes else "bytes")
+    return bounds
+
+
+def flash_phase(torch):
+    """The four cases in bf16 and f32, then the bench shape: checks,
+    kernel times, plain times, the SDPA yardstick (timed only) and the
+    bound."""
+    import torch.nn.functional as F
+
+    from lzy_tpu_torch.ops import flash_attention as fa
+
+    #: kernel -> the outputs it writes
+    outputs = {"fwd": ("o",), "dq": ("dq",), "dkv": ("dk", "dv")}
+    worst = {k: {"max_abs": 0.0, "row_rel": 0.0} for k in outputs}
+
+    def record(label, errs):
+        log(f"flash {label} (worst row rel L2 / rel L2 / rms|plain| / max "
+            f"abs err): " + ", ".join(
+                f"{w} {r['row_rel']:.2e}/{r['rel_l2']:.2e}/"
+                f"{r['rms_plain']:.2e}/{r['max_abs']:.2e}"
+                for w, r in errs.items()))
+        for kernel, names in outputs.items():
+            for key in worst[kernel]:
+                worst[kernel][key] = max(worst[kernel][key],
+                                         *(errs[n][key] for n in names))
+
+    for i, case in enumerate(FLASH_CASES):
+        for dtype in ("bfloat16", "float32"):
+            errs, _ = _flash_check(
+                torch, _flash_inputs(torch, case, dtype, i), dtype,
+                f"{case[0]}-{dtype}")
+            record(f"{case[0]}-{dtype}", errs)
+    f64 = _flash_f64(torch)
+    inp = _flash_inputs(torch, BENCH_FLASH, "bfloat16", 99)
+    errs, outs = _flash_check(torch, inp, "bfloat16", "bench")
+    record("bench", errs)
+    control = _flash_control(torch, outs)
+    del outs
+    q, k, v, do = inp["q"], inp["k"], inp["v"], inp["do"]
+    args = (q, k, v, None, None)
+    kw = dict(scale=inp["scale"], causal=True)
+    o, lse = fa.flash_fwd(*args, **kw)
+    delta = fa.flash_delta(o, do)
+    t_fwd = _time_ms(torch, lambda: fa.flash_fwd(*args, **kw))
+    t_dq = _time_ms(torch, lambda: fa.flash_bwd_dq(*args, lse, delta, do,
+                                                   **kw))
+    t_dkv = _time_ms(torch, lambda: fa.flash_bwd_dkv(*args, lse, delta, do,
+                                                     **kw))
+    plain_fwd = _time_ms(torch, lambda: fa._fwd_plain(*args, inp["scale"],
+                                                      True), iters=5)
+    plain_bwd = _time_ms(torch, lambda: fa._bwd_plain_from_delta(
+        *args, lse, delta, do, inp["scale"], True), iters=5)
+    sdpa_fwd = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    sdpa_bwd = _time_ms(torch, lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True))
+
+    def fwd_bwd():
+        y = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(y, (qg, kg, vg), do)
+
+    sdpa_total = _time_ms(torch, fwd_bwd)
+    bound = _flash_bound(BENCH_FLASH)
+    rows = {
+        "fwd": dict(ms=t_fwd, plain_ms=plain_fwd, library_ms=sdpa_fwd),
+        "dq": dict(ms=t_dq, plain_ms=plain_bwd, library_ms=sdpa_bwd),
+        "dkv": dict(ms=t_dkv, plain_ms=plain_bwd, library_ms=sdpa_bwd)}
+    for kernel, row in rows.items():
+        row.update(bound_ms=bound[kernel][0], bound_by=bound[kernel][1],
+                   max_abs_err=worst[kernel]["max_abs"],
+                   worst_row_rel_err=worst[kernel]["row_rel"])
+    log("flash bench times: " + json.dumps(rows)
+        + f"; SDPA forward+backward {sdpa_total:.4f} ms")
+    return rows, sdpa_total, f64, control
+
+
+# -- train phase -------------------------------------------------------------
+
+#: step-0 flash path vs plain attention path, same weights and batch,
+#: both bf16, and each against the plain path computing in f32 (the
+#: nearest thing to exact here). The kernels alone are within 0.25%
+#: (relative L2) of a float64 evaluation at the bench shape, the plain
+#: version within 0.18%; but bf16 compute across 20 layers puts either
+#: path ~3% (relative L2 per gradient leaf) from the f32 evaluation, in
+#: different directions (NVIDIA H100 80GB HBM3, 700 W: flash 3.53e-2,
+#: plain 3.51e-2 at worst; flash vs plain 2.98e-2). Limits: the loss
+#: (~10.4) within 2e-2 of the plain path's; every gradient leaf within
+#: 5e-2 relative L2 of the plain path's; and per kind of leaf, the flash
+#: path no farther from f32 than 1.25x the plain path's distance
+TRAIN_LOSS_TOL = 2e-2
+TRAIN_GRAD_TOL = 5e-2
+TRAIN_F32_RATIO = 1.25
+TRAIN_STEPS = 5
+
+
+def _grads(torch, model):
+    return {name: p.grad.detach().clone()
+            for name, p in model.named_parameters()}
+
+
+def train_phase(torch):
+    """The bench config (the ~350M Llama, batch 16 x 2048, bf16 compute,
+    f32 master params, remat, fused CE, flash) through
+    ``parallel.train.make_train_step``."""
+    import dataclasses
+
+    from lzy_tpu_torch.models.llama import Llama, make_loss_fn
+    from lzy_tpu_torch.ops import flash_attention as fa
+    from lzy_tpu_torch.parallel.train import mfu
+    from lzy_tpu_torch.train import run_steps, setup
+
+    t0 = time.monotonic()
+    run = setup("cuda", seed=SEED)
+    cfg, model = run.cfg, run.state.model
+    log(f"train: {run.n_params / 1e6:.1f}M params, batch "
+        f"{tuple(run.batch['tokens'].shape)}, built in "
+        f"{time.monotonic() - t0:.1f} s")
+
+    # step 0: the flash path against the plain attention path
+    loss = run.loss_fn(model, run.batch)
+    loss.backward()
+    flash_loss, flash_grads = float(loss.detach()), _grads(torch, model)
+    model.zero_grad(set_to_none=True)
+    plain_cfg = dataclasses.replace(cfg, use_flash_kernel=False)
+    plain = Llama(plain_cfg, "cuda")
+    plain.load_state_dict(model.state_dict())
+    loss = make_loss_fn(plain_cfg)(plain, run.batch)
+    loss.backward()
+    plain_loss, plain_grads = float(loss.detach()), _grads(torch, plain)
+    del plain, loss
+    # control: the plain path computing in f32, the nearest thing to
+    # exact at this size: how far bf16 compute alone puts either path
+    f32_cfg = dataclasses.replace(plain_cfg, dtype=torch.float32)
+    exact = Llama(f32_cfg, "cuda")
+    exact.load_state_dict(model.state_dict())
+    make_loss_fn(f32_cfg)(exact, run.batch).backward()
+    control_grads = _grads(torch, exact)
+    del exact
+    torch.cuda.empty_cache()
+    if not (abs(flash_loss - plain_loss) <= TRAIN_LOSS_TOL):
+        fail(f"train: step-0 loss {flash_loss} (flash) vs {plain_loss} "
+             f"(plain) differ by more than {TRAIN_LOSS_TOL}")
+    def rel(a, b):
+        b = b.float()
+        return float((a.float() - b).norm() / b.norm().clamp_min(1e-30))
+
+    by_kind, flash_f32, plain_f32 = {}, {}, {}
+    for name, g in flash_grads.items():
+        r = rel(g, plain_grads[name])
+        if not torch.isfinite(g).all() or not r <= TRAIN_GRAD_TOL:
+            fail(f"train: step-0 gradient {name} is {r:.3e} (relative L2)"
+                 f" from the plain path's (limit {TRAIN_GRAD_TOL})")
+        kind = name.split(".")[-2] if "." in name else name
+        for table, value in ((by_kind, r),
+                             (flash_f32, rel(g, control_grads[name])),
+                             (plain_f32, rel(plain_grads[name],
+                                             control_grads[name]))):
+            table[kind] = max(table.get(kind, 0.0), value)
+    worst = max(by_kind.values())
+    for kind, dist in flash_f32.items():
+        if dist > TRAIN_F32_RATIO * plain_f32[kind]:
+            fail(f"train: step-0 {kind} gradients are {dist:.3e} from the "
+                 f"f32 evaluation, over {TRAIN_F32_RATIO} x the plain "
+                 f"path's {plain_f32[kind]:.3e}")
+
+    def show(table):
+        return ", ".join(f"{k} {v:.2e}" for k, v in table.items())
+
+    log(f"train: step 0, flash vs plain attention path: loss {flash_loss:.6f}"
+        f" vs {plain_loss:.6f}; gradient leaves, relative L2, worst per "
+        f"kind: {show(by_kind)}")
+    log(f"train: the same against the plain path in f32: flash "
+        f"{show(flash_f32)}; plain {show(plain_f32)}")
+    del flash_grads, plain_grads, control_grads
+
+    # the main path: warmup and timed steps through make_train_step
+    fa.reset_launches()
+    losses = run_steps(run, run.warmup)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    losses += run_steps(run, TRAIN_STEPS)
+    dt = time.perf_counter() - t1
+    fwd, dq, dkv = fa.launches()
+    steps = run.warmup + TRAIN_STEPS
+    want = (2 * cfg.n_layers * steps, cfg.n_layers * steps,
+            cfg.n_layers * steps)
+    if (fwd, dq, dkv) != want:
+        fail(f"train: flash launches (fwd, dQ, dK/dV) {(fwd, dq, dkv)} != "
+             f"{want} for {steps} steps of {cfg.n_layers} remat layers")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"train: losses {losses} are not finite or did not fall")
+    b, t = run.batch["tokens"].shape
+    tokens_per_s = b * t * TRAIN_STEPS / dt
+    result = dict(params=run.n_params, batch=b, seq_len=t,
+                  step_ms=1e3 * dt / TRAIN_STEPS, tokens_per_s=tokens_per_s,
+                  mfu=mfu(tokens_per_s, run.n_params, 1, chip="h100-sxm"),
+                  losses=losses, step0_loss_flash=flash_loss,
+                  step0_loss_plain=plain_loss, step0_worst_grad_rel=worst,
+                  step0_grad_rel_by_kind=by_kind,
+                  step0_flash_vs_f32_by_kind=flash_f32,
+                  step0_plain_vs_f32_by_kind=plain_f32,
+                  launches=dict(fwd=fwd, dq=dq, dkv=dkv),
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log("train: " + json.dumps(result))
+    return result
+
+
 def main():
     if not (REPO / "lzy_tpu_torch" / "csrc").is_dir():
         fail(f"no lzy_tpu_torch/ next to {Path(__file__).name}: run it "
@@ -500,19 +998,46 @@ def main():
 
     smi = device_phase(torch)
     build_phase()
-    worst, decode, rows = kernel_phase(torch)
+    worst, decode, rows, f64_rows = kernel_phase(torch)
+    flash_rows, sdpa_total, flash_f64, control = flash_phase(torch)
     launches, serving = serving_phase(torch, np)
     small_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = train_phase(torch)
     kernels = {"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "lzy_tpu_torch/csrc/paged_attention.cu",
         "replaces": "lzy_tpu/ops/paged_attention.py:199",
         "launches": launches, "max_abs_err": worst,
+        "tolerance": "f32 1e-5 + 1e-5*|plain|; bf16 2e-3 + 1e-2*|plain|",
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
         "library_ms": decode["library_ms"]}]}
+    flash_tol = (f"worst row relative L2: f32 {FLASH_ROW_TOL['float32']:g}"
+                 f", bf16 {FLASH_ROW_TOL['bfloat16']:g}")
+    for kernel, name, line in (("fwd", "flash_fwd", 79),
+                               ("dq", "flash_bwd_dq", 197),
+                               ("dkv", "flash_bwd_dkv", 260)):
+        row = flash_rows[kernel]
+        kernels["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "lzy_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"lzy_tpu/ops/flash_attention.py:{line}",
+            "launches": trained["launches"][kernel],
+            "max_abs_err": row["max_abs_err"],
+            "worst_row_rel_err": row["worst_row_rel_err"],
+            "tolerance": flash_tol,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     log("kernel cases: " + json.dumps(rows))
+    print(json.dumps({"paged_f64": f64_rows, "flash_f64": flash_f64,
+                      "flash_control": control}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"train": {k: v for k, v in trained.items()
+                                if k != "losses"},
+                      "sdpa_fwd_bwd_ms": sdpa_total}))
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

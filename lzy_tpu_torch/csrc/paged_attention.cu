@@ -26,7 +26,11 @@
 //   visited (masked slots contribute exactly 0 in the reference);
 // - two passes over K: pass 1 keeps each row's running max and sum, pass 2
 //   recomputes the scores, normalizes p = exp(s - m) / l, rounds p to the
-//   compute dtype (the reference casts before P.V) and accumulates P.V in f32.
+//   compute dtype (the reference casts before P.V) and accumulates P.V in f32;
+//   both running sums (l and P.V) take each 32-slot block's sum with Kahan
+//   compensation: a plain f32 running sum over the 8192 slots of a long row
+//   drifted 5.7e-5 from a float64 evaluation where cuBLAS's blocked sum in
+//   the plain version stayed within 7.8e-7 (idle row, int8 pool, f32; H100).
 //   Reading K twice costs 1.5x the bound's bytes; it buys the reference's
 //   rounding order (normalize, round, then contract).
 
@@ -130,6 +134,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   __shared__ float p_s[kRowTile][kBlk];
   __shared__ float m_s[kRowTile];
   __shared__ float l_s[kRowTile];
+  __shared__ float lc_s[kRowTile];  // Kahan compensation of l_s
   __shared__ int pos_s[kRowTile];
   __shared__ int row_s[kBlk];  // pooled row (block, offset, head) per slot
   __shared__ int n_vis_s;
@@ -158,6 +163,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     pos_s[tid] = p;
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
+    lc_s[tid] = 0.f;
   }
   __syncthreads();
   if (tid == 0) {
@@ -247,7 +253,14 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
         sum += __shfl_xor_sync(0xffffffffu, sum, o);
       __syncwarp();
       if (lane == 0) {
-        l_s[r] = l_s[r] * expf(m_old - m_new) + sum;
+        // compensated: a row over thousands of slots adds hundreds of
+        // block sums, and a plain f32 running sum drifts ~1e-5 relative
+        const float alpha = expf(m_old - m_new);
+        const float l_old = l_s[r] * alpha;
+        const float y = sum - lc_s[r] * alpha;
+        const float t = l_old + y;
+        lc_s[r] = (t - l_old) - y;
+        l_s[r] = t;
         m_s[r] = m_new;
       }
     }
@@ -257,9 +270,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   // Pass 2: normalized probabilities, rounded to the compute dtype, times V.
   const int e = tid % D;
   const int rb = tid / D;
-  float acc[ACC];
+  float acc[ACC], comp[ACC];  // running sums and their Kahan compensation
 #pragma unroll
-  for (int j = 0; j < ACC; ++j) acc[j] = 0.f;
+  for (int j = 0; j < ACC; ++j) acc[j] = comp[j] = 0.f;
   for (int kb = 0; kb < n_kb; ++kb) {
     stage(kb, true);
     scores(kb);
@@ -273,10 +286,13 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 #pragma unroll
     for (int j = 0; j < ACC; ++j) {
       const int r = rb + j * ROW_STEP;
-      float a = acc[j];
+      float part = 0.f;  // this block's 32 terms, then one compensated add
 #pragma unroll 8
-      for (int l = 0; l < kBlk; ++l) a += p_s[r][l] * v_s[l][e];
-      acc[j] = a;
+      for (int l = 0; l < kBlk; ++l) part += p_s[r][l] * v_s[l][e];
+      const float y = part - comp[j];
+      const float t = acc[j] + y;
+      comp[j] = (t - acc[j]) - y;
+      acc[j] = t;
     }
     __syncthreads();
   }

@@ -10,7 +10,10 @@ params as nested dicts: ``embed_tokens [V, D]``, ``layer_{i}`` with
 
 :func:`from_reference` maps such a tree (numpy arrays, or anything
 ``np.asarray`` accepts) to a port state dict; :func:`to_reference` maps
-back, so both frameworks compute with the same weights.
+back, so both frameworks compute with the same weights, and
+:func:`grads_to_reference` maps the port's gradients onto the same tree.
+Tied embeddings (no ``lm_head``) and f32 training params go through
+unchanged: the dtype is ``cfg.param_dtype``.
 """
 
 from __future__ import annotations
@@ -79,6 +82,13 @@ def to_reference(state: Dict[str, torch.Tensor],
                         w.reshape(w.shape[0], *out_shape[name]))}
         params[f"layer_{i}"] = layer
     return params
+
+
+def grads_to_reference(model: Llama) -> Dict[str, Any]:
+    """The model's ``.grad`` tensors as a reference-shaped tree (f32
+    numpy), so gradients compare leaf by leaf with ``jax.grad``'s."""
+    return to_reference({name: p.grad for name, p in model.named_parameters()},
+                        model.cfg)
 
 
 def load_reference(model: Llama, params: Any) -> Llama:

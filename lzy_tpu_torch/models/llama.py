@@ -1,9 +1,20 @@
 """Llama-family decoder (RMSNorm + RoPE + GQA + SwiGLU) in PyTorch.
 
-The port's counterpart of ``lzy_tpu/models/llama.py``, serving subset:
-``LlamaConfig`` with its ``llama3_8b`` and ``tiny`` presets, ``RMSNorm``,
-the half-split rotary embedding, ``Attention`` with a dense or a paged
-KV cache, ``Mlp``, ``DecoderLayer``, ``Llama`` and :func:`init_params`.
+The port's counterpart of ``lzy_tpu/models/llama.py``, serving and
+training subsets: ``LlamaConfig`` with its ``llama3_8b`` and ``tiny``
+presets, ``RMSNorm``, the half-split rotary embedding, ``Attention`` with
+a dense or a paged KV cache, ``Mlp``, ``DecoderLayer``, ``Llama``,
+:func:`init_params` and the causal-LM loss :func:`make_loss_fn`.
+
+Training (the full-sequence forward, no cache) follows the reference:
+packed documents (``segments``) restart RoPE positions at every
+document and confine attention to it; ``use_flash_kernel`` sends
+sequences whose length is a multiple of 128 through
+``ops.flash_attention`` (the hand-written kernels on the card), others
+through the plain ``ops.attention.causal_attention``; ``remat`` re-runs
+each layer's forward in the backward (:class:`_Remat`, the reference's
+``remat_policy="nothing"``); ``fused_ce`` returns
+``(features, head)`` for the chunked CE instead of logits.
 
 Where the reference keeps the KV cache in a flax ``cache`` collection
 with per-layer ``index`` leaves, the port passes the cache explicitly:
@@ -36,7 +47,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from lzy_tpu_torch.device import DeviceLike, resolve_device
+from lzy_tpu_torch.models.common import cross_entropy_loss
 from lzy_tpu_torch.ops.attention import causal_attention
+from lzy_tpu_torch.ops.chunked_ce import chunked_cross_entropy
+from lzy_tpu_torch.ops.flash_attention import document_starts, flash_attention
 from lzy_tpu_torch.ops.paged_attention import (
     KVQuant, attend, paged_attention, quantize_kv)
 
@@ -60,6 +74,15 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.bfloat16
     tie_embeddings: bool = False         # Llama-3 uses an untied lm_head
+    #: training: re-run each layer's forward in the backward; the only
+    #: policy ported is "nothing" (keep no activation inside a layer)
+    remat: bool = True
+    remat_policy: str = "nothing"
+    #: training: the forward returns (features, head) and the loss runs
+    #: the chunked CE (ops/chunked_ce.py), never materializing [B, T, V]
+    fused_ce: bool = False
+    #: the full-sequence forward takes the flash kernels when T % 128 == 0
+    use_flash_kernel: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -74,7 +97,8 @@ class LlamaConfig:
         """Test shape: same code paths, toy dims."""
         return LlamaConfig(
             vocab_size=vocab_size, d_model=64, n_layers=2, n_heads=4,
-            n_kv_heads=2, d_ff=128, max_seq_len=256, tie_embeddings=True)
+            n_kv_heads=2, d_ff=128, max_seq_len=256, remat=False,
+            tie_embeddings=True)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -216,7 +240,7 @@ class Attention(nn.Module):
         self.o_proj = _linear(h * d, cfg.d_model, cfg, dev)
 
     def forward(self, x, positions, cache=None, layer: int = 0,
-                page_table=None):
+                page_table=None, segments=None):
         cfg = self.cfg
         dt = cfg.dtype
         b, t, _ = x.shape
@@ -227,8 +251,14 @@ class Attention(nn.Module):
         v = F.linear(x, self.v_proj.weight.to(dt)).view(b, t, kv, d)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-        if cache is None:
-            out = causal_attention(q, k, v)
+        if cache is None and cfg.use_flash_kernel and t % 128 == 0:
+            # GQA: repeat kv groups up to full heads, [B, H, T, D] layout
+            kk, vv = (a.repeat_interleave(h // kv, dim=2) for a in (k, v))
+            out = flash_attention(q.transpose(1, 2), kk.transpose(1, 2),
+                                  vv.transpose(1, 2), causal=True,
+                                  segment_ids=segments).transpose(1, 2)
+        elif cache is None:
+            out = causal_attention(q, k, v, segment_ids=segments)
         else:
             # decode-mode chunk: write this chunk's K/V first (the chunk's
             # own causal prefix must be visible to it), then attend
@@ -262,18 +292,21 @@ class DecoderLayer(nn.Module):
         self.mlp = Mlp(cfg, dev)
 
     def forward(self, x, positions, cache=None, layer: int = 0,
-                page_table=None):
+                page_table=None, segments=None):
         x = x + self.attn(self.attn_norm(x), positions, cache, layer,
-                          page_table)
+                          page_table, segments)
         return x + self.mlp(self.mlp_norm(x))
 
 
 class Llama(nn.Module):
     """The decoder stack. ``forward(tokens)`` is the full causal forward
-    at positions ``0..T-1``; with ``cache`` it is a decode-mode chunk at
-    per-row ``starts`` (``[B]`` int32) that writes K/V into the cache in
-    place (``page_table [B, P]`` int32 for a :class:`PagedKVPool`).
-    Returns f32 logits ``[B, T, vocab]``."""
+    at positions ``0..T-1`` (``segments [B, T]``: packed documents, each
+    with its own positions and attention); with ``cache`` it is a
+    decode-mode chunk at per-row ``starts`` (``[B]`` int32) that writes
+    K/V into the cache in place (``page_table [B, P]`` int32 for a
+    :class:`PagedKVPool`). Returns f32 logits ``[B, T, vocab]``, or
+    ``(features, head)`` in the compute dtype for a full-sequence forward
+    under ``cfg.fused_ce``."""
 
     def __init__(self, cfg: LlamaConfig, device: DeviceLike = "cuda"):
         super().__init__()
@@ -294,20 +327,67 @@ class Llama(nn.Module):
     def device(self) -> torch.device:
         return self.embed_tokens.device
 
-    def forward(self, tokens, cache=None, starts=None, page_table=None):
+    def forward(self, tokens, cache=None, starts=None, page_table=None,
+                segments=None):
         cfg = self.cfg
         b, t = tokens.shape
         x = F.embedding(tokens.long(), self.embed_tokens).to(cfg.dtype)
         steps = torch.arange(t, dtype=torch.int32, device=tokens.device)
-        if cache is None:
-            positions = steps[None, :].expand(b, t)
-        else:
+        if cache is not None:
             positions = starts.to(torch.int32)[:, None] + steps[None, :]
+        elif segments is not None:
+            # packed documents: positions restart at every document
+            positions = steps[None, :] - document_starts(segments)
+        else:
+            positions = steps[None, :].expand(b, t)
+        remat = cache is None and cfg.remat and torch.is_grad_enabled()
+        if remat and cfg.remat_policy != "nothing":
+            raise ValueError(f"remat_policy {cfg.remat_policy!r} is not "
+                             f"ported; known: ['nothing']")
         for i, layer in enumerate(self.layers):
-            x = layer(x, positions, cache, i, page_table)
+            if remat:
+                x = _Remat.apply(
+                    lambda h, layer=layer: layer(h, positions,
+                                                 segments=segments),
+                    x, *layer.parameters())
+            else:
+                x = layer(x, positions, cache, i, page_table, segments)
         x = self.final_norm(x)
         head = self.embed_tokens if self.lm_head is None else self.lm_head
+        if cfg.fused_ce and cache is None:
+            return x.to(cfg.dtype), head.to(cfg.dtype)
         return F.linear(x.to(cfg.dtype), head.to(cfg.dtype)).float()
+
+
+class _Remat(torch.autograd.Function):
+    """Per-layer rematerialization: the forward runs the layer without
+    keeping any activation, the backward runs it again under autograd and
+    differentiates that (the reference's ``nn.remat`` with the
+    ``nothing_saveable`` policy). The layer's parameters are inputs, so
+    their gradients flow through the usual graph. Written here rather than
+    taken from ``torch.utils.checkpoint``, whose first call imports
+    ``torch._dynamo``, which writes ``TORCHINDUCTOR_CACHE_DIR`` into
+    ``os.environ``: the port leaves the process environment alone (its
+    optimizer, ``parallel.train.AdamW``, avoids the import too)."""
+
+    @staticmethod
+    def forward(ctx, fn, x, *params):
+        ctx.fn, ctx.params = fn, params
+        ctx.save_for_backward(x)
+        with torch.no_grad():
+            return fn(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x = ctx.saved_tensors[0].detach().requires_grad_()
+        with torch.enable_grad():
+            out = ctx.fn(x)
+        live = [p for p in ctx.params if p.requires_grad]
+        dx, *dparams = torch.autograd.grad(out, [x] + live, grad,
+                                           allow_unused=True)
+        dparams = iter(dparams)
+        return (None, dx, *(next(dparams) if p.requires_grad else None
+                            for p in ctx.params))
 
 
 def _trunc_normal_(t: torch.Tensor, std: float, gen: torch.Generator):
@@ -322,19 +402,20 @@ def _trunc_normal_(t: torch.Tensor, std: float, gen: torch.Generator):
 
 
 def init_params(cfg: LlamaConfig, seed: int = 0,
-                device: DeviceLike = "cuda") -> Llama:
+                device: DeviceLike = "cuda", *,
+                trainable: bool = False) -> Llama:
     """A :class:`Llama` with random weights drawn from a seeded
     ``torch.Generator`` on ``device``, by the reference's init laws:
     lecun-normal dense kernels (truncated normal, std ``1/sqrt(fan_in)``
     over JAX's truncation correction 0.8796), ones for norm scales,
     normal(0.02) for the embedding and the untied head. Weights are
-    frozen (``requires_grad=False``): the model serves."""
+    frozen (``requires_grad=False``) unless ``trainable``."""
     model = Llama(cfg, device)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(seed)
     with torch.no_grad():
         for p in model.parameters():
-            p.requires_grad_(False)
+            p.requires_grad_(trainable)
         for name, p in model.named_parameters():
             if name.endswith("scale"):
                 p.fill_(1.0)
@@ -347,3 +428,44 @@ def init_params(cfg: LlamaConfig, seed: int = 0,
                 _trunc_normal_(p, (1.0 / p.shape[1]) ** 0.5
                                / 0.87962566103423978, gen)
     return model
+
+
+def make_loss_fn(cfg: LlamaConfig):
+    """Causal-LM loss ``loss_fn(model, batch) -> scalar``: predict
+    ``tokens[:, t + 1]`` from ``tokens[:, :t + 1]``. ``batch`` holds
+    ``tokens [B, T]`` and optionally ``mask [B, T]`` (positions to
+    predict from) and ``segments [B, T]`` (packed documents; a position
+    whose next token starts another document predicts nothing). ``model``
+    must be built from ``cfg``."""
+
+    def loss_fn(model: Llama, batch) -> torch.Tensor:
+        if model.cfg != cfg:
+            raise ValueError("loss_fn's config differs from the model's")
+        tokens = batch["tokens"]
+        segments = batch.get("segments")
+        out = model(tokens, segments=segments)
+        mask = batch.get("mask")
+        shifted_mask = mask[:, 1:] if mask is not None else None
+        if segments is not None:
+            shifted_mask = _segment_shift_mask(segments, shifted_mask)
+        return _lm_loss(cfg, out, tokens, shifted_mask)
+
+    return loss_fn
+
+
+def _segment_shift_mask(segments, shifted_mask):
+    """Cross-document next-token rule: a position whose next token
+    belongs to a different document must not be asked to predict it."""
+    same_doc = segments[:, 1:] == segments[:, :-1]
+    return same_doc if shifted_mask is None \
+        else shifted_mask.to(torch.bool) & same_doc
+
+
+def _lm_loss(cfg: LlamaConfig, out, tokens, shifted_mask):
+    """Next-token loss tail: ``out`` is logits, or ``(features, head)``
+    under ``cfg.fused_ce``."""
+    if cfg.fused_ce:
+        features, head = out
+        return chunked_cross_entropy(features[:, :-1], head, tokens[:, 1:],
+                                     mask=shifted_mask)
+    return cross_entropy_loss(out[:, :-1], tokens[:, 1:], shifted_mask)

@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List
 
@@ -83,10 +84,14 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> Dict[str, Path]:
-    """Build and load every kernel; returns ``{name: library path}``."""
-    for name in sources():
+    """Build and load every kernel; returns ``{name: library path}``.
+    One nvcc per source, all started together."""
+    names = sources()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(_build, names))
+    for name in names:
         load(name)
-    return {name: library_path(name) for name in sources()}
+    return {name: library_path(name) for name in names}
 
 
 def build_log(name: str) -> str:
