@@ -6,22 +6,27 @@ failing the run (non-zero exit, no result line) on a miss:
 
 1. device — needs CUDA; prints ``nvidia-smi``'s name and power limit;
 2. build — compiles every kernel under ``lzy_tpu_torch/csrc`` with nvcc;
-3. kernels — the paged-attention kernel against its plain PyTorch
-   version on the card at the main path's shapes (Llama-3-8B heads,
-   page 16, bf16 and int8 pools, f32 compute over f32 and int8 pools for
-   a tight check, T in {1,
-   gamma+1, 64}, a row past 1024 visible slots), with the tolerance
-   stated per case; then times at the decode shape: the kernel, the
-   plain version, ``scaled_dot_product_attention`` over K/V pre-gathered
-   to the dense layout (a yardstick the port never calls) and the bound;
-   the int8-pool, f32-compute cases (one with an idle row) are also held
-   to a float64 evaluation, and both versions' errors against it printed;
+3. kernels — the paged-attention kernels (split-K over pages) against
+   their plain PyTorch version on the card at the main path's shapes
+   (Llama-3-8B heads, page 16, bf16 and int8 pools, f32 compute over f32
+   and int8 pools for a tight check, T in {1, gamma+1, 64}, a row past
+   1024 visible slots, and rows on and off page and split boundaries with
+   the page walk forced to one split and to many), with the tolerance
+   stated per case; then times at each timed case: the kernels (as the
+   caller sees them, and as device time alone), the plain
+   version, ``scaled_dot_product_attention`` (a yardstick the port never
+   calls) over K/V pre-gathered to the dense layout and, again, with the
+   page-table gather and int8 dequantization inside the timed call, and
+   the bound; the int8-pool, f32-compute cases (one with an idle row) are
+   also held to a float64 evaluation: the kernels may be at most
+   ``PAGED_F64_RATIO`` x farther from it than the plain version;
 3b. flash — the forward, dQ and dK/dV kernels (``csrc/flash_attention.cu``)
    against their plain versions, row by row (``FLASH_ROW_TOL``, with a
    deliberately wrong control that must be refused), in bf16 and f32 on
-   four cases (causal; causal with packed documents and a repeated id;
+   six cases (causal; causal with packed documents and a repeated id;
    non-causal with a ``kv_mask`` and a fully masked batch row; a ragged
-   T=200 at d=64),
+   T=200 at d=64; causal at T=4096; T=1000, off the forward's 128-row
+   tiles),
    then at the train step's shape (16 x 8 heads, T=2048, d=128, causal,
    bf16): checked, timed against the plain versions, the bound and
    ``scaled_dot_product_attention`` (forward, backward; timed only); and
@@ -179,16 +184,33 @@ def _tolerance(dtype):
     return (1e-5, 1e-5) if dtype == "float32" else (2e-3, 1e-2)
 
 
-def _time_ms(torch, fn, iters=20):
-    """Mean device time per call by CUDA events, with a 128 MiB write
-    between calls so every call finds K/V cold in L2 (as a decode layer
-    does: 32 layers' pools do not fit the 50 MB L2)."""
+#: GPU clock cycles the card spins (``torch.cuda._sleep``) before each
+#: gated call, ~0.2 ms: long enough for the host to enqueue the call's
+#: kernels behind it, so the events time the device's work alone and not
+#: the wrapper's Python (tens of microseconds, as long as a fast kernel)
+GATE_CYCLES = 400_000
+
+
+def _time_ms(torch, fn, iters=20, gate=False):
+    """Mean time per call by CUDA events, with a 128 MiB write between
+    calls so every call finds K/V cold in L2 (as a decode layer does: 32
+    layers' pools do not fit the 50 MB L2): the time of a call as its
+    caller sees it on the card, the wrapper's host work included wherever
+    it outlasts the flush. With ``gate``, the card is held busy
+    (``GATE_CYCLES``) while the host enqueues the call, which leaves the
+    device's own time (``device_ms``)."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
+        flush.zero_()
+        if gate:                       # the gate kernel's first launch too
+            torch.cuda._sleep(GATE_CYCLES)
         fn()
+    torch.cuda.synchronize()
     times = []
     for _ in range(iters):
         flush.zero_()
+        if gate:
+            torch.cuda._sleep(GATE_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -226,8 +248,10 @@ def _bound_ms(inp, lengths):
 
 
 def _library_call(torch, inp, lengths):
-    """``scaled_dot_product_attention`` on the same inputs with K/V
-    gathered to the dense layout beforehand (the gather is not timed)."""
+    """``scaled_dot_product_attention`` on the same inputs, twice: over K/V
+    gathered to the dense layout beforehand (the gather is not timed), and
+    with the page-table gather (and the int8 dequantization) inside the
+    timed call, as the kernel does it."""
     import torch.nn.functional as F
 
     from lzy_tpu_torch.ops.paged_attention import dequantize_kv
@@ -235,22 +259,34 @@ def _library_call(torch, inp, lengths):
     q, k, v, table, pos = (inp[x] for x in ("q", "k", "v", "table", "pos"))
     L = max(lengths)
     pages = -(-L // PAGE)
-    pt = table[:, :pages].long()
-    keys, vals = k[pt], v[pt]
-    if inp["side"] is not None:
-        s = inp["side"]
-        keys = dequantize_kv(keys, s.k_scale[pt], s.k_zp[pt], inp["cdt"])
-        vals = dequantize_kv(vals, s.v_scale[pt], s.v_zp[pt], inp["cdt"])
     b = q.shape[0]
-    keys = keys.reshape(b, pages * PAGE, *k.shape[2:])[:, :L]
-    vals = vals.reshape(b, pages * PAGE, *k.shape[2:])[:, :L]
     qh = q.transpose(1, 2).contiguous()              # [B, H, T, D]
-    kh = keys.transpose(1, 2).contiguous()           # [B, KV, L, D]
-    vh = vals.transpose(1, 2).contiguous()
     mask = (torch.arange(L, device=q.device)[None, None, None, :]
             <= pos[:, None, :, None])                # [B, 1, T, L]
-    return lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=mask, enable_gqa=True)
+
+    def gather():
+        pt = table[:, :pages].long()
+        keys, vals = k[pt], v[pt]
+        if inp["side"] is not None:
+            s = inp["side"]
+            keys = dequantize_kv(keys, s.k_scale[pt], s.k_zp[pt],
+                                 inp["cdt"])
+            vals = dequantize_kv(vals, s.v_scale[pt], s.v_zp[pt],
+                                 inp["cdt"])
+        keys = keys.reshape(b, pages * PAGE, *k.shape[2:])[:, :L]
+        vals = vals.reshape(b, pages * PAGE, *k.shape[2:])[:, :L]
+        return (keys.transpose(1, 2).contiguous(),   # [B, KV, L, D]
+                vals.transpose(1, 2).contiguous())
+
+    kh, vh = gather()
+
+    def with_gather():
+        kg, vg = gather()
+        return F.scaled_dot_product_attention(qh, kg, vg, attn_mask=mask,
+                                              enable_gqa=True)
+
+    return (lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, enable_gqa=True)), with_gather
 
 
 def _f64_attention(torch, inp):
@@ -278,8 +314,13 @@ def _f64_attention(torch, inp):
     return torch.einsum("bkgtl,blkd->btkgd", p, vals)
 
 
+#: visible lengths on and off page and split boundaries: a one-slot row, a
+#: full page, one past it, a row one short of 64 pages
+EDGE_LENGTHS = [1, 16, 17, 250, 1000, 1023, 33, 480]
+#: a page walk forced into more splits than most rows have pages
+MANY_SPLITS = 24
 KERNEL_CASES = [
-    # (name, T, dtype, int8 pool, visible lengths per row)
+    # (name, T, dtype, int8 pool, visible lengths per row[, forced splits])
     ("decode-bf16", 1, "bfloat16", False,
      [1500, 700, 320, 1100, 150, 410, 980, 530]),
     ("decode-int8", 1, "bfloat16", True,
@@ -300,7 +341,22 @@ KERNEL_CASES = [
     ("chunk-bf16", 64, "bfloat16", False, [1100, 512]),
     ("chunk-int8", 64, "bfloat16", True, [1100, 512]),
     ("chunk-f32", 64, "float32", False, [1100, 512]),
+    # the split-K page walk at its edges, forced to one split and to many
+    # (correctness only, not timed; a row shorter than T starts at 0)
+    ("edges-1split-bf16", 1, "bfloat16", False, EDGE_LENGTHS, 1),
+    ("edges-many-bf16", 1, "bfloat16", False, EDGE_LENGTHS, MANY_SPLITS),
+    ("edges-many-int8-f32", 1, "float32", True, EDGE_LENGTHS, MANY_SPLITS),
+    ("edges-1split-int8-f32", 1, "float32", True, EDGE_LENGTHS, 1),
+    ("edges-verify-many-bf16", GAMMA + 1, "bfloat16", False,
+     [max(n, GAMMA + 1) for n in EDGE_LENGTHS], MANY_SPLITS),
+    ("edges-chunk-many-bf16", 64, "bfloat16", False,
+     [max(n, 64) for n in EDGE_LENGTHS[:4]], MANY_SPLITS),
 ]
+#: against a float64 evaluation (largest absolute error), the kernels may be
+#: at most this many times farther than the plain version in the f32-compute
+#: int8-pool cases: the split-K walk sums in another order than the plain
+#: version's blocked matmul, and must not lose accuracy doing it
+PAGED_F64_RATIO = 1.25
 
 
 def kernel_phase(torch):
@@ -312,14 +368,18 @@ def kernel_phase(torch):
     worst = 0.0
     rows, f64_rows = [], []
     decode = None
-    for i, (name, t, dtype, quant, lengths) in enumerate(KERNEL_CASES):
+    for i, (name, t, dtype, quant, lengths, *forced) in enumerate(
+            KERNEL_CASES):
         idle = name.endswith("-idle")
         inp = _kernel_inputs(torch, t=t, dtype=dtype, quant=quant,
                              lengths=lengths, n_blocks=n_blocks, seed=i,
                              idle_last=idle)
         args = (inp["q"], inp["k"], inp["v"], inp["table"], inp["pos"])
         kw = dict(dtype=inp["cdt"], quant=inp["side"])
-        got = pa.paged_attention(*args, **kw)
+        if forced:
+            got = pa._launch(*args, **kw, splits=forced[0])
+        else:
+            got = pa.paged_attention(*args, **kw)
         want = pa.paged_attention_plain(*args, **kw)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
@@ -339,19 +399,30 @@ def kernel_phase(torch):
             log(f"  {name} vs float64: kernel {f64['kernel']:.3e}, plain "
                 f"{f64['plain']:.3e}")
             f64_rows.append(dict(case=name, **f64))
+            if f64["kernel"] > PAGED_F64_RATIO * f64["plain"]:
+                fail(f"kernel {name} is {f64['kernel']:.3e} from float64, "
+                     f"over {PAGED_F64_RATIO} x the plain version's "
+                     f"{f64['plain']:.3e}")
         if not ok:
             fail(f"kernel {name} disagrees with its plain version")
         worst = max(worst, max_err)
-        if idle:
+        if idle or forced:
             continue
         ms = _time_ms(torch, lambda: pa.paged_attention(*args, **kw))
+        device_ms = _time_ms(torch,
+                             lambda: pa.paged_attention(*args, **kw),
+                             gate=True)
         plain_ms = _time_ms(torch,
                             lambda: pa.paged_attention_plain(*args, **kw),
                             iters=5)
-        lib_ms = _time_ms(torch, _library_call(torch, inp, lengths))
+        lib_pre, lib_gather = _library_call(torch, inp, lengths)
+        lib_ms = _time_ms(torch, lib_pre)
+        lib_gather_ms = _time_ms(torch, lib_gather)
         bound, by = _bound_ms(inp, lengths)
         row = dict(case=name, T=t, rows=len(lengths), ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                   device_ms=device_ms, plain_ms=plain_ms,
+                   library_ms=lib_ms,
+                   library_with_gather_ms=lib_gather_ms, bound_ms=bound,
                    bound_by=by, max_abs_err=max_err)
         rows.append(row)
         log("  " + json.dumps(row))
@@ -598,6 +669,9 @@ FLASH_CASES = [
     ("segments", 2, 8, 1024, 128, True, False, True),
     ("kv_mask", 2, 8, 768, 128, False, True, False),
     ("ragged", 2, 4, 200, 64, True, False, False),
+    # the long causal walk, and a T off the forward's 128-row tiles
+    ("causal4096", 1, 8, 4096, 128, True, False, False),
+    ("t1000", 2, 8, 1000, 128, True, False, False),
 ]
 #: the train step's attention shape: batch 16 x 8 heads, seq 2048, d 128
 BENCH_FLASH = ("bench", 16, 8, 2048, 128, True, False, False)
@@ -1011,9 +1085,11 @@ def main():
         "replaces": "lzy_tpu/ops/paged_attention.py:199",
         "launches": launches, "max_abs_err": worst,
         "tolerance": "f32 1e-5 + 1e-5*|plain|; bf16 2e-3 + 1e-2*|plain|",
-        "ms": decode["ms"], "plain_ms": decode["plain_ms"],
+        "ms": decode["ms"], "device_ms": decode["device_ms"],
+        "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
-        "library_ms": decode["library_ms"]}]}
+        "library_ms": decode["library_ms"],
+        "library_with_gather_ms": decode["library_with_gather_ms"]}]}
     flash_tol = (f"worst row relative L2: f32 {FLASH_ROW_TOL['float32']:g}"
                  f", bf16 {FLASH_ROW_TOL['bfloat16']:g}")
     for kernel, name, line in (("fwd", "flash_fwd", 79),

@@ -12,15 +12,20 @@ The port's counterpart of ``lzy_tpu/ops/paged_attention.py``:
   reference's op order (f32 scores, ``d**-0.5`` after the dot, ``-1e30``
   mask, probabilities cast to the compute dtype before P.V);
 - :func:`paged_attention` — the public op and the wrapper of the
-  hand-written Hopper kernel ``csrc/paged_attention.cu`` (the counterpart
-  of ``_pallas_kernel``): on CUDA tensors it launches the kernel (or
-  raises), on CPU tensors it runs the plain version. It counts its
-  launches in ``paged_attention.launches``.
+  hand-written Hopper kernels ``csrc/paged_attention.cu`` (the counterpart
+  of ``_pallas_kernel``: split-K over pages in two passes): on
+  CUDA tensors it launches them (or raises), on CPU tensors it runs the
+  plain version. It counts its launches in ``paged_attention.launches``,
+  one per call;
+- :func:`split_plan` and :func:`split_pages` — how many splits of the
+  page walk the wrapper asks for, and which pages each split reads: plain
+  Python, the same arithmetic the kernels do on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -152,15 +157,58 @@ def _check_kernel_args(q, k_pool, v_pool, page_table, positions, dtype,
                              "q's device")
         if not x.is_contiguous():
             raise ValueError("paged-attention operands must be contiguous")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("pools must be 16-byte aligned")
+    if q.data_ptr() % 16 or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("q and the pools must be 16-byte aligned")
+
+
+def row_tile(rows: int) -> int:
+    """Query rows per kernel tile: decode's G heads of one token take 4,
+    more rows take 8 (the kernels' own rule, csrc/paged_attention.cu
+    ``launch``)."""
+    return 4 if rows <= 4 else 8
+
+
+#: CTAs a split plan aims for, in waves of one CTA per SM: one and a half,
+#: so that the long rows' splits run beside the short rows' whole walks
+#: (measured at chip_smoke.py's decode shape on an NVIDIA H100 80GB HBM3 at
+#: 700 W: 4 splits of 64 CTAs beat 5, 3 and 2; at its verify shape 2
+#: splits of 192 CTAs beat 1)
+WAVES = 1.5
+#: most splits of one page walk (the kernels' ``kMaxSplits``)
+MAX_SPLITS = 64
+
+
+def split_plan(batch: int, kv_heads: int, rows: int, pages: int,
+               n_sm: int) -> int:
+    """Splits of each (batch row, KV head, row tile)'s page walk.
+
+    ``rows`` is T x G query rows per (batch row, KV head), ``pages`` the
+    page table's width, ``n_sm`` the card's SM count. With ``batch x
+    kv_heads x row tiles`` CTAs already filling ``WAVES`` waves, one split;
+    else enough splits for ``WAVES`` waves, at most one per page. Shapes
+    only: the plan never reads the positions (no device sync)."""
+    ctas = batch * kv_heads * -(-rows // row_tile(rows))
+    target = math.ceil(WAVES * n_sm)
+    if ctas >= target:
+        return 1
+    return max(1, min(pages, MAX_SPLITS, -(-target // ctas)))
+
+
+def split_pages(split: int, splits: int, visible_pages: int):
+    """Pages ``[p0, p1)`` that split ``split`` of ``splits`` reads out of
+    a tile's ``visible_pages`` (the pages holding slots 0 .. max position
+    of its rows): an even share, on page boundaries, every page exactly
+    once over the splits."""
+    return (split * visible_pages // splits,
+            (split + 1) * visible_pages // splits)
 
 
 _bound = None
+_sm_counts = {}
 
 
 def _launcher():
-    """The kernel's C launcher, built, loaded and given its signature on
+    """The kernels' C launcher, built, loaded and given its signature on
     first use."""
     global _bound
     if _bound is None:
@@ -168,11 +216,20 @@ def _launcher():
 
         fn = load("paged_attention").lzy_paged_attention
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
-                       + [ctypes.c_int] * 7 + [ctypes.c_float,
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 14
+                       + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                ctypes.c_void_p])
         _bound = fn
     return _bound
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
 
 
 def paged_attention(q, k_pool, v_pool, page_table, positions, *,
@@ -190,10 +247,15 @@ def paged_attention(q, k_pool, v_pool, page_table, positions, *,
     - ``dtype``: compute/output dtype (defaults to the pool's; int8 pools
       must pass it).
 
-    Returns ``[B, T, KV, G, D]``. CUDA tensors launch the Hopper kernel
+    Returns ``[B, T, KV, G, D]``. CUDA tensors launch the Hopper kernels
     ``csrc/paged_attention.cu`` on the current stream (or raise: there is
-    no fall back); CPU tensors run :func:`paged_attention_plain`, since
-    the kernel has no CPU form. Allocates the output; never synchronizes.
+    no fall back), split over pages as :func:`split_plan` says; CPU
+    tensors run :func:`paged_attention_plain`, since the kernels have no
+    CPU form. Allocates the output and one f32 scratch buffer; never
+    synchronizes. One call counts one launch in
+    ``paged_attention.launches`` and issues two CUDA launches (the
+    statistics pass and the P.V pass, whose last CTA per row tile sums the
+    splits).
     """
     if dtype is None:
         if quant is not None:
@@ -202,27 +264,67 @@ def paged_attention(q, k_pool, v_pool, page_table, positions, *,
     if not q.is_cuda:
         return paged_attention_plain(q, k_pool, v_pool, page_table,
                                      positions, dtype=dtype, quant=quant)
+    b, t, h, _ = q.shape
+    kv_heads = k_pool.shape[2]
+    splits = split_plan(b, kv_heads, t * (h // max(kv_heads, 1)),
+                        page_table.shape[-1], _sm_count(q.device))
+    return _launch(q, k_pool, v_pool, page_table, positions, dtype=dtype,
+                   quant=quant, splits=splits)
+
+
+def _launch(q, k_pool, v_pool, page_table, positions, *, dtype, quant,
+            splits: int) -> torch.Tensor:
+    """The kernels on CUDA tensors with ``splits`` splits of every page
+    walk (the tests force one and many)."""
     _check_kernel_args(q, k_pool, v_pool, page_table, positions, dtype, quant)
     b, t, h, d = q.shape
     n, page, kv_heads, _ = k_pool.shape
+    pages = page_table.shape[1]
+    most = max(1, min(pages, MAX_SPLITS))
+    if not 1 <= splits <= most:
+        raise ValueError(f"splits must be in [1, {most}], got {splits}")
     out = torch.empty((b, t, kv_heads, h // kv_heads, d), dtype=dtype,
                       device=q.device)
     if b * t == 0:
         return out
+    rows = t * (h // kv_heads)
+    # the f32 scratch, one allocation: per split and row (max, sum); the
+    # splits' partial P.V and the row tiles' tickets where the walk is
+    # split; and the scores pass 1 keeps for pass 2 where a slot's T x G
+    # f32 scores are fewer bytes than its K row (decode, verify: K is
+    # read once)
+    heads = b * kv_heads
+    sizes = (heads * splits * rows * 2 * 4,
+             heads * splits * rows * d * 4 if splits > 1 else 0,
+             heads * pages * page * rows * 4
+             if rows * 4 < d * k_pool.element_size() else 0,
+             heads * -(-rows // row_tile(rows)) * 4 if splits > 1 else 0)
+    offsets, at = [], 0
+    for size in sizes:
+        offsets.append(at)
+        at += -(-size // 256) * 256
+    scratch = torch.empty(at, dtype=torch.uint8, device=q.device)
+    base = scratch.data_ptr()
+    ml, part, scores, tickets = (base + off if size else None
+                                 for off, size in zip(offsets, sizes))
     fn = _launcher()
     side = [x.data_ptr() for x in quant] if quant is not None else [None] * 4
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(_DTYPE_CODES[dtype], _DTYPE_CODES[k_pool.dtype], d,
-                q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *side,
-                page_table.data_ptr(), positions.data_ptr(), out.data_ptr(),
-                b, t, h, kv_heads, n, page, page_table.shape[1],
-                d ** -0.5, stream)
+    args = (_DTYPE_CODES[dtype], _DTYPE_CODES[k_pool.dtype], d,
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *side,
+            page_table.data_ptr(), positions.data_ptr(), out.data_ptr(),
+            ml, part, scores, tickets,
+            b, t, h, kv_heads, n, page, pages, splits, d ** -0.5)
+    if q.device.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(q.device):
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged-attention kernel launch failed (code {rc})")
     paged_attention.launches += 1
     return out
 
 
-#: kernel launches on CUDA tensors (the plain CPU path does not count)
+#: kernel launches on CUDA tensors, one per call (the plain CPU path does
+#: not count)
 paged_attention.launches = 0

@@ -138,7 +138,7 @@ def measure(run: TrainRun) -> dict:
 
 def _group(kernel: str) -> str:
     name = kernel.lower()
-    if "flash_fwd" in name or "fwd_kernel" in name:
+    if "flash_fwd" in name or "fwd_kernel" in name or "fwd_wgmma" in name:
         return "flash forward"
     if "dq_kernel" in name:
         return "flash dQ"

@@ -221,6 +221,16 @@ CUDA_CASES = [
     ("kv_mask", 2, 4, 384, 64, False, True, False),
     ("ragged", 1, 3, 200, 64, True, False, False),
 ]
+#: cases of the bf16 forward's tiling, in one test: the long causal walk
+#: (32 KV tiles for the last query tile), a T that is not a multiple of
+#: its 128-row tiles, and head dims it pads with zero columns (to 64 and
+#: to 128)
+CUDA_TILING_CASES = [
+    ("causal4096", 1, 2, 4096, 128, True, False, False),
+    ("t1000", 2, 2, 1000, 128, True, False, False),
+    ("d32", 1, 2, 256, 32, True, False, False),
+    ("d80", 2, 2, 384, 80, False, True, False),
+]
 
 
 def _cuda_inputs(case, dtype):
@@ -254,13 +264,9 @@ def _assert_close(got, want, dtype, what):
         f"{what}: worst row relative L2 {worst:.3e}"
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("case", CUDA_CASES, ids=[c[0] for c in CUDA_CASES])
-def test_cuda_kernels_match_plain(case, dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+def _check_kernels(case, dtype):
+    """Forward, dQ and dK/dV kernels against the plain versions on one
+    case, one launch of each."""
     q, k, v, do, causal, kv_mask, segs = _cuda_inputs(case, dtype)
     scale = q.shape[-1] ** -0.5
     bias, bounds = fa._mask_operands(q, kv_mask, segs)
@@ -283,3 +289,30 @@ def test_cuda_kernels_match_plain(case, dtype):
     if kv_mask is not None:      # the batch row that sees no key at all
         for x in (o, *grads):
             assert not bool(x[-1].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CUDA_CASES, ids=[c[0] for c in CUDA_CASES])
+def test_cuda_kernels_match_plain(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _check_kernels(case, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_at_tiling_edges():
+    """``CUDA_TILING_CASES`` in f32 and bf16 under the limits of
+    ``test_cuda_kernels_match_plain``; every case runs, and the failures
+    are reported together."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    failures = []
+    for case in CUDA_TILING_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            try:
+                _check_kernels(case, dtype)
+            except AssertionError as e:
+                failures.append(f"{case[0]}-{dtype}: {e}")
+    assert not failures, "\n".join(failures)

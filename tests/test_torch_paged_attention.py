@@ -9,8 +9,10 @@ the JAX reference.
   pools, non-contiguous and shared page tables, idle rows on scratch
   block 0 at the edge of the sequence, and out-of-range block ids (the
   reference's gather clamps them).
-- The CUDA kernel against the plain version on the card (marker
-  ``cuda``; skipped without a card). On a machine without JAX run it as
+- The CUDA kernels against the plain version on the card (marker
+  ``cuda``; skipped without a card), with the split plan's choice and
+  with the page walk forced to one split and to many, over rows whose
+  visible lengths fall on and off page and split boundaries. On a machine without JAX run it as
   ``python -m pytest --noconftest -m cuda tests/test_torch_paged_attention.py``.
 
 Inputs are drawn with numpy from fixed seeds and handed to both sides.
@@ -233,3 +235,77 @@ def test_cuda_kernel_matches_plain(case, dtype):
     atol, rtol = (1e-5, 1e-5) if cdt == torch.float32 else (2e-3, 1e-2)
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
+
+
+#: visible lengths on and off page (16) and split boundaries: a one-slot
+#: row, a full page, one past it, a long row one short of 64 pages
+SPLIT_LENGTHS = [1, 16, 17, 250, 1000, 1023, 33, 480]
+
+
+def _check_split_edges(dtype, t, splits):
+    """One (compute dtype, T, split choice) of
+    ``test_cuda_kernel_split_edges``."""
+    rng = np.random.default_rng(23)
+    b, h, kv, d, page, pages = len(SPLIT_LENGTHS), 32, 8, 128, 16, 80
+    lengths = [max(n, t) for n in SPLIT_LENGTHS]
+    need = [-(-n // page) for n in lengths]
+    n_blocks = sum(need) + 1
+    dev = torch.device("cuda")
+    quant = dtype.startswith("int8")
+    cdt = torch.float32 if dtype.endswith("float32") else torch.bfloat16
+    q = torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(
+        np.float32)).to(dev, cdt)
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (n_blocks, page, kv, d)).astype(np.float32)).to(dev)
+        for _ in range(2))
+    perm = rng.permutation(np.arange(1, n_blocks))
+    table = np.zeros((b, pages), np.int32)
+    at = 0
+    for row, n in enumerate(need):
+        table[row, :n] = perm[at:at + n]
+        at += n
+    pos = (np.asarray(lengths)[:, None] - t + np.arange(t)[None, :])
+    tt = torch.from_numpy(table).to(dev)
+    tp = torch.from_numpy(pos.astype(np.int32)).to(dev)
+    side = None
+    if quant:
+        kq, ks, kz = pa.quantize_kv(k)
+        vq, vs, vz = pa.quantize_kv(v)
+        k, v, side = kq, vq, pa.KVQuant(ks, kz, vs, vz)
+    else:
+        k, v = k.to(cdt), v.to(cdt)
+    args = (q, k, v, tt, tp)
+    before = pa.paged_attention.launches
+    if splits == "plan":
+        got = pa.paged_attention(*args, dtype=cdt, quant=side)
+    else:
+        got = pa._launch(*args, dtype=cdt, quant=side,
+                         splits=1 if splits == "one" else 24)
+    want = pa.paged_attention_plain(*args, dtype=cdt, quant=side)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches == before + 1
+    atol, rtol = (1e-5, 1e-5) if cdt == torch.float32 else (2e-3, 1e-2)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_split_edges():
+    """The kernels with the page walk split as the plan says, forced to one
+    split and forced to 24 (more splits than most rows have pages), at T
+    in {1, 5, 64} (decode, verify, chunk), with bf16 pools and with int8
+    pools in f32 compute, against the plain version under the tolerances
+    of ``test_cuda_kernel_matches_plain``. 8B's heads (32 over 8, d=128),
+    page 16; a row shorter than T starts at position 0. Every combination
+    runs, and the failures are reported together."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    failures = []
+    for dtype in ("bfloat16", "int8-float32"):
+        for t in (1, 5, 64):
+            for splits in ("one", "plan", "many"):
+                try:
+                    _check_split_edges(dtype, t, splits)
+                except AssertionError as e:
+                    failures.append(f"{dtype}-T{t}-{splits}: {e}")
+    assert not failures, "\n".join(failures)
