@@ -23,15 +23,18 @@ failing the run (non-zero exit, no result line) on a miss:
 3b. flash — the forward, dQ and dK/dV kernels (``csrc/flash_attention.cu``)
    against their plain versions, row by row (``FLASH_ROW_TOL``, with a
    deliberately wrong control that must be refused), in bf16 and f32 on
-   six cases (causal; causal with packed documents and a repeated id;
+   seven cases (causal; causal with packed documents and a repeated id;
    non-causal with a ``kv_mask`` and a fully masked batch row; a ragged
-   T=200 at d=64; causal at T=4096; T=1000, off the forward's 128-row
-   tiles),
+   T=200 at d=64; causal at T=4096; T=1000, off the 128-row tiles; an odd
+   number of 128-row tiles, whose middle work item pairs a tile with
+   itself),
    then at the train step's shape (16 x 8 heads, T=2048, d=128, causal,
-   bf16): checked, timed against the plain versions, the bound and
-   ``scaled_dot_product_attention`` (forward, backward; timed only); and
-   kernels and plain versions against float64 at T=2048, d=128 (relative
-   L2; the kernels within ``FLASH_F64_RATIO`` x the plain version's);
+   bf16): checked, dQ and dK/dV run twice on the same inputs and required
+   to give the same bits (no atomics), timed against the plain versions,
+   the bound and ``scaled_dot_product_attention`` (forward, backward;
+   timed only); and kernels and plain versions against float64 at
+   T=2048, d=128 (relative L2; the kernels within ``FLASH_F64_RATIO`` x
+   the plain version's);
 4. serving — ``service.inference.build_engine("llama3_8b")`` at full
    width and depth (bf16, random weights from a seed) answers 8 requests
    (128-512-token prompts, two sharing a 256-token prefix, 32 new tokens
@@ -669,9 +672,11 @@ FLASH_CASES = [
     ("segments", 2, 8, 1024, 128, True, False, True),
     ("kv_mask", 2, 8, 768, 128, False, True, False),
     ("ragged", 2, 4, 200, 64, True, False, False),
-    # the long causal walk, and a T off the forward's 128-row tiles
+    # the long causal walk, a T off the 128-row tiles, and an odd number of
+    # 128-row tiles (the middle work item pairs a tile with itself)
     ("causal4096", 1, 8, 4096, 128, True, False, False),
     ("t1000", 2, 8, 1000, 128, True, False, False),
+    ("odd_tiles", 2, 8, 640, 128, True, False, False),
 ]
 #: the train step's attention shape: batch 16 x 8 heads, seq 2048, d 128
 BENCH_FLASH = ("bench", 16, 8, 2048, 128, True, False, False)
@@ -855,6 +860,20 @@ def _flash_bound(case):
     return bounds
 
 
+def _flash_repeat(torch, fa, args, lse, delta, do, kw):
+    """dQ and dK/dV twice on the same inputs: every CTA owns the rows it
+    writes (no atomics), so the two runs must give the same bits."""
+    runs = [(fa.flash_bwd_dq(*args, lse, delta, do, **kw),
+             *fa.flash_bwd_dkv(*args, lse, delta, do, **kw))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), *runs):
+        if not torch.equal(a, b):
+            fail(f"flash {name}: two runs on the same inputs differ "
+                 f"({int((a != b).sum())} elements)")
+    log("flash repeat: dQ, dK and dV bit-identical over two runs")
+
+
 def flash_phase(torch):
     """The four cases in bf16 and f32, then the bench shape: checks,
     kernel times, plain times, the SDPA yardstick (timed only) and the
@@ -895,6 +914,7 @@ def flash_phase(torch):
     kw = dict(scale=inp["scale"], causal=True)
     o, lse = fa.flash_fwd(*args, **kw)
     delta = fa.flash_delta(o, do)
+    _flash_repeat(torch, fa, args, lse, delta, do, kw)
     t_fwd = _time_ms(torch, lambda: fa.flash_fwd(*args, **kw))
     t_dq = _time_ms(torch, lambda: fa.flash_bwd_dq(*args, lse, delta, do,
                                                    **kw))

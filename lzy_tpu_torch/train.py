@@ -140,9 +140,9 @@ def _group(kernel: str) -> str:
     name = kernel.lower()
     if "flash_fwd" in name or "fwd_kernel" in name or "fwd_wgmma" in name:
         return "flash forward"
-    if "dq_kernel" in name:
+    if "dq_kernel" in name or "dq_wgmma" in name:
         return "flash dQ"
-    if "dkv_kernel" in name:
+    if "dkv_kernel" in name or "dkv_wgmma" in name:
         return "flash dK/dV"
     if "gemm" in name or "nvjet" in name or "cutlass" in name \
             or "splitk" in name:

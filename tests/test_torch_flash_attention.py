@@ -221,15 +221,21 @@ CUDA_CASES = [
     ("kv_mask", 2, 4, 384, 64, False, True, False),
     ("ragged", 1, 3, 200, 64, True, False, False),
 ]
-#: cases of the bf16 forward's tiling, in one test: the long causal walk
-#: (32 KV tiles for the last query tile), a T that is not a multiple of
-#: its 128-row tiles, and head dims it pads with zero columns (to 64 and
-#: to 128)
+#: cases of the bf16 kernels' tiling, in one test: the long causal walk
+#: (32 tiles of 128 for the last query or first key tile), a T that is not
+#: a multiple of the 128-row tiles, alone and under kv_mask, head dims
+#: padded with zero columns (to 64 and to 128), an odd number of 128-row
+#: tiles (the middle work item pairs a tile with itself), and packed
+#: documents at the train shape's T, causal and not
 CUDA_TILING_CASES = [
     ("causal4096", 1, 2, 4096, 128, True, False, False),
     ("t1000", 2, 2, 1000, 128, True, False, False),
+    ("t1000_kv_mask", 2, 2, 1000, 128, True, True, False),
     ("d32", 1, 2, 256, 32, True, False, False),
     ("d80", 2, 2, 384, 80, False, True, False),
+    ("odd_tiles", 1, 2, 640, 128, True, False, False),
+    ("segments2048", 1, 2, 2048, 128, True, False, True),
+    ("segments_full", 1, 2, 768, 64, False, False, True),
 ]
 
 
