@@ -48,6 +48,20 @@ failing the run (non-zero exit, no result line) on a miss:
    oracle's dense path fed the same tokens (teacher forcing);
 5. small — the tiny config in f32 on the card: engine (through the
    kernel) against the oracle, under the same rule at ``GAP_TOL_F32``;
+5b. fleet — Llama-3-8B at full width and depth (bf16, seed 0, page 16,
+   prefill chunk 64) behind ``service.inference.build_gateway_service``:
+   two replicas over one model, 384 blocks (768 MiB) and a 1 GiB host KV
+   tier each, prefix routing with the global index; 24 conversations of
+   a distinct 512-token system prompt plus 64 tokens, then the same
+   system prompts with new tails (16 new tokens each), so round A must
+   demote and round B promote; then behind
+   ``build_disagg_gateway_service`` (one prefill, one decode replica,
+   512 blocks each), 8 requests of 512-1024 tokens, two sharing 512.
+   Checks: every reply ok and held to the oracle as in phase 4;
+   demotions, promotions and disagg transfers > 0; a chain's rows
+   exported before its demotion equal its rows after promotion, and an
+   imported prefix's rows equal the prefill replica's, bit for bit;
+   launches == layers x forwards over all replicas of each gateway;
 6. train — ``lzy_tpu_torch.train``'s bench config (the ~350M Llama the
    repo's headline measures: batch 16 x 2048, bf16 compute, f32 master
    params, per-layer remat, fused CE, flash kernels, AdamW): step-0 loss
@@ -638,6 +652,303 @@ def small_phase(torch):
         log(f"small: prompt of {len(prompt)}: {steps}/24 steps compared")
 
 
+# -- fleet phase -------------------------------------------------------------
+
+#: the prefix-routed gateway: two replicas over one model, 384 blocks of
+#: 2 MiB per replica, a 1 GiB host tier each; round A's 24 distinct
+#: 512-token system prompts (768 blocks) overflow the two pools, so round
+#: B, which repeats them with new tails, needs the tier (or a sibling)
+FLEET_REPLICAS = 2
+FLEET_SLOTS = 4
+FLEET_BLOCKS = 384
+FLEET_HOST_TIER = 1 << 30
+FLEET_CONVERSATIONS = 24
+FLEET_SYSTEM = 512
+FLEET_TAIL = 64
+FLEET_NEW = 16
+#: the disaggregated gateway: one prefill and one decode replica
+DISAGG_BLOCKS = 512
+DISAGG_LENGTHS = [512, 640, 768, 1024, 576, 704, 896, 960]
+DISAGG_SHARED = 512
+#: concurrent client threads (the gateway sheds past its 16 waiters)
+FLEET_CLIENTS = 16
+
+
+def _exports_equal(torch, a, b, what):
+    """Two ``KVBlockExport``s of one prefix hold the same bits."""
+    if a is None or b is None:
+        fail(f"fleet: {what}: an export is missing")
+    if list(a.tokens) != list(b.tokens) or set(a.leaves) != set(b.leaves):
+        fail(f"fleet: {what}: exports cover different tokens or leaves")
+    for key, rows in a.leaves.items():
+        if rows.dtype != b.leaves[key].dtype or \
+                not torch.equal(rows, b.leaves[key]):
+            fail(f"fleet: {what}: leaf {key} differs")
+    return len(a.tokens) // PAGE
+
+
+def _engines(service):
+    out = [r.engine for r in service.fleet.replicas()]
+    pool = getattr(service, "prefill_fleet", None)
+    if pool is not None:
+        out += [r.engine for r in pool.replicas()]
+    return out
+
+
+def _serve_all(service, prompts, n_new):
+    """Every prompt through ``service.generate`` from concurrent client
+    threads; the replies in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(prompt):
+        return service.generate(prompt, max_new_tokens=n_new,
+                                timeout_s=900)
+
+    with ThreadPoolExecutor(FLEET_CLIENTS) as pool:
+        return list(pool.map(one, prompts))
+
+
+def _check_replies(torch, model, prompts, replies, n_new, what):
+    """Every reply ok and held to the generate() oracle: the top-2 rule,
+    then teacher forcing."""
+    from lzy_tpu_torch.models.generate import generate
+
+    compared, off_argmax, shortfall = 0, 0, 0.0
+    for i, (prompt, reply) in enumerate(zip(prompts, replies)):
+        if reply["status"] != "ok" or len(reply["tokens"]) != n_new:
+            fail(f"fleet: {what} reply {i}: {reply}")
+        p = torch.tensor([prompt], device="cuda")
+        out, logits = generate(model, p, max_new_tokens=n_new,
+                               return_logits=True)
+        if not torch.isfinite(logits).all():
+            fail("fleet: oracle logits are not finite")
+        compared += _top2_rule(out[0, len(prompt):].tolist(),
+                               reply["tokens"], logits[0], GAP_TOL_BF16)
+        off, worst = _teacher_forced(torch, model, p, reply["tokens"],
+                                     GAP_TOL_BF16)
+        off_argmax += off
+        shortfall = max(shortfall, worst)
+    log(f"fleet: {what}: {len(replies)} replies ok; {compared}/"
+        f"{n_new * len(replies)} steps equal generate(); teacher-forced "
+        f"{off_argmax} tokens off the argmax, at most {shortfall:.4g} "
+        f"below it")
+    return dict(oracle_steps_compared=compared,
+                teacher_forced_off_argmax=off_argmax,
+                teacher_forced_max_shortfall=shortfall)
+
+
+def _launch_check(pa, cfg, service, calls0):
+    launches = pa.paged_attention.launches
+    forwards = sum(e.forward_calls for e in _engines(service)) - calls0
+    if launches <= 0 or launches != cfg.n_layers * forwards:
+        fail(f"fleet: kernel launches {launches} != {cfg.n_layers} layers "
+             f"x {forwards} forwards")
+    return launches, forwards
+
+
+def _timing(replies, engines, wall):
+    """TTFT as the client saw it; the decode rate of one replica's rounds
+    (tokens over the rounds' own wall time, averaged over replicas whose
+    rounds overlap); the gateway's new tokens over the wall time."""
+    ttft = [r["ttft_ms"] / 1e3 for r in replies]
+    tokens = sum(e.decode_tokens for e in engines)
+    seconds = sum(e.decode_seconds for e in engines)
+    return dict(ttft_mean_s=sum(ttft) / len(ttft), ttft_max_s=max(ttft),
+                replica_decode_tokens_per_s=(tokens / seconds if seconds
+                                             else 0.0),
+                new_tokens_per_s_wall=sum(len(r["tokens"])
+                                          for r in replies) / wall,
+                wall_s=wall)
+
+
+def _check_chain_promoted(on_home, promoted):
+    """Conversation 0's round-B reply took its system prompt back from
+    its home replica's host tier: every block promoted, every token of it
+    saved from prefill, and no promotion failed (a failed promotion that
+    re-prefilled would give the same rows and pass the bit check)."""
+    blocks, saved, failures = promoted
+    if (not on_home or blocks < FLEET_SYSTEM // PAGE
+            or saved < FLEET_SYSTEM or failures):
+        fail(f"fleet: conversation 0's chain did not come back through "
+             f"promotion on its home replica (on home {on_home}, "
+             f"{blocks} blocks promoted, {saved} tokens saved, "
+             f"{failures} promotion failures)")
+    log(f"fleet: conversation 0's chain promoted on its home replica: "
+        f"{blocks} blocks, {saved} prefill tokens saved")
+
+
+def _prefix_gateway(torch, np, pa):
+    from lzy_tpu_torch.service.inference import build_gateway_service
+
+    t0 = time.monotonic()
+    gw = build_gateway_service(
+        "llama3_8b", seed=SEED, device="cuda", replicas=FLEET_REPLICAS,
+        slots=FLEET_SLOTS, paged=True, page_size=PAGE,
+        kv_blocks=FLEET_BLOCKS, kv_host_tier_bytes=FLEET_HOST_TIER,
+        routing="prefix", autoscale=False, prefill_chunk=64,
+        warm_start=True, start=False)
+    try:
+        engines = _engines(gw)
+        model = engines[0].model
+        cfg = model.cfg
+        if any(e.model is not model for e in engines):
+            fail("fleet: replicas do not share one model")
+        if gw.kv_index is None or any(e.kernel_path != "cuda"
+                                      for e in engines):
+            fail("fleet: no global index, or a replica off the kernel")
+        log(f"fleet: prefix gateway, {len(engines)} replicas built and "
+            f"warmed in {time.monotonic() - t0:.1f} s; pools "
+            f"{[e._cache.nbytes() / 2**20 for e in engines]} MiB")
+        rng = np.random.default_rng(SEED + 1)
+        system = [[int(x) for x in rng.integers(0, cfg.vocab_size,
+                                                FLEET_SYSTEM)]
+                  for _ in range(FLEET_CONVERSATIONS)]
+        tails = [[[int(x) for x in rng.integers(0, cfg.vocab_size,
+                                                FLEET_TAIL)]
+                  for _ in range(FLEET_CONVERSATIONS)] for _ in range(2)]
+        rounds = [[s + t for s, t in zip(system, tails[k])]
+                  for k in range(2)]
+
+        pa.paged_attention.launches = 0
+        calls0 = sum(e.forward_calls for e in engines)
+        t_start = time.monotonic()
+        # conversation 0 first, alone: its system prompt's rows are
+        # exported while resident, before round A's pressure demotes them
+        first = _serve_all(gw, rounds[0][:1], FLEET_NEW)
+        home = gw.fleet.get(first[0]["replica"]).engine
+        before = home.request_kv_export(system[0], timeout_s=120)
+        replies_a = first + _serve_all(gw, rounds[0][1:], FLEET_NEW)
+        demoted = home.kv_tier.has(tuple(system[0][:PAGE])) is not None
+        gw.tick()                       # refresh the global prefix index
+        promoted0 = (home.kv_tier_promotions,
+                     home.stats().prefill_tokens_saved,
+                     home.kv_tier_promotion_failures)
+        first_b = _serve_all(gw, rounds[1][:1], FLEET_NEW)
+        where = gw.fleet.get(first_b[0]["replica"]).engine
+        promoted = (home.kv_tier_promotions - promoted0[0],
+                    home.stats().prefill_tokens_saved - promoted0[1],
+                    home.kv_tier_promotion_failures - promoted0[2])
+        _check_chain_promoted(where is home, promoted)
+        after = where.request_kv_export(system[0], timeout_s=120)
+        blocks = _exports_equal(torch, before, after,
+                                "chain exported before demotion vs after "
+                                "promotion")
+        replies_b = first_b + _serve_all(gw, rounds[1][1:], FLEET_NEW)
+        wall = time.monotonic() - t_start
+        launches, forwards = _launch_check(pa, cfg, gw, calls0)
+
+        stats = gw.stats()
+        per_replica = {r.id: dict(
+            demotions=r.engine.kv_tier_demotions,
+            promotions=r.engine.kv_tier_promotions,
+            dropped=r.engine.kv_tier_dropped,
+            promotion_failures=r.engine.kv_tier_promotion_failures,
+            demotion_gathers=r.engine.kv_tier_gather_rounds,
+            kv_imports=r.engine.kv_imports,
+            evictions=r.engine.stats().kv_evictions,
+            prefill_tokens_saved=r.engine.stats().prefill_tokens_saved)
+            for r in gw.fleet.replicas()}
+        if not demoted:
+            fail("fleet: conversation 0's system prompt was never demoted")
+        if stats["kvtier_demotions"] <= 0 or stats["kvtier_promotions"] <= 0:
+            fail(f"fleet: demotions {stats['kvtier_demotions']}, "
+                 f"promotions {stats['kvtier_promotions']}: both must be > 0")
+        result = dict(
+            replicas=per_replica, chain_blocks_bit_equal=blocks,
+            chain_promoted_on_home=where is home,
+            sibling_imports=stats["kvtier_imports"],
+            sibling_import_bytes=stats["kvtier_import_bytes"],
+            reprefill_fallbacks=stats["kvtier_reprefill_fallbacks"],
+            routed_by_prefix=stats["routed_by_prefix"],
+            routed_total=stats["routed_total"],
+            launches=launches, forwards=forwards,
+            **_timing(replies_a + replies_b, engines, wall))
+        log("fleet: prefix gateway " + json.dumps(result))
+        result.update(_check_replies(torch, model, rounds[0] + rounds[1],
+                                     replies_a + replies_b, FLEET_NEW,
+                                     "prefix gateway"))
+        return launches, result
+    finally:
+        gw.close()
+
+
+def _disagg_gateway(torch, np, pa):
+    from lzy_tpu_torch.service.inference import build_disagg_gateway_service
+
+    t0 = time.monotonic()
+    dg = build_disagg_gateway_service(
+        "llama3_8b", seed=SEED, device="cuda", prefill_replicas=1,
+        decode_replicas=1, slots=FLEET_SLOTS, page_size=PAGE,
+        kv_blocks=DISAGG_BLOCKS, autoscale=False, prefill_chunk=64,
+        warm_start=True, start=False)
+    try:
+        engines = _engines(dg)
+        model = engines[0].model
+        cfg = model.cfg
+        log(f"fleet: disagg gateway built and warmed in "
+            f"{time.monotonic() - t0:.1f} s")
+        rng = np.random.default_rng(SEED + 2)
+        prompts = [[int(x) for x in rng.integers(0, cfg.vocab_size, n)]
+                   for n in DISAGG_LENGTHS]
+        prompts[1] = prompts[0][:DISAGG_SHARED] + prompts[1][DISAGG_SHARED:]
+
+        pa.paged_attention.launches = 0
+        calls0 = sum(e.forward_calls for e in engines)
+        t_start = time.monotonic()
+        first = _serve_all(dg, prompts[:1], FLEET_NEW)
+        if first[0]["prefilled_by"] is None:
+            fail(f"fleet: disagg reply 0 did not use imported KV: "
+                 f"{first[0]}")
+        decode = dg.fleet.get(first[0]["replica"]).engine
+        prefill = dg.prefill_fleet.get(first[0]["prefilled_by"]).engine
+        n_full = (len(prompts[0]) - 1) // PAGE * PAGE
+        blocks = _exports_equal(
+            torch, prefill.request_kv_export(prompts[0][:n_full], 120),
+            decode.request_kv_export(prompts[0][:n_full], 120),
+            "prefill replica's rows vs the decode replica's imported rows")
+        replies = first + _serve_all(dg, prompts[1:], FLEET_NEW)
+        wall = time.monotonic() - t_start
+        launches, forwards = _launch_check(pa, cfg, dg, calls0)
+        stats = dg.stats()
+        if stats["kv_transfers"] <= 0:
+            fail("fleet: the disagg gateway moved no KV")
+        result = dict(
+            transfers=stats["kv_transfers"],
+            transfer_bytes=stats["kv_transfer_bytes"],
+            skipped_by_cache=stats["kv_transfer_skipped_by_cache"],
+            reprefill_fallbacks=stats["reprefill_fallbacks"],
+            decode_imports=decode.kv_imports,
+            import_blocks_bit_equal=blocks,
+            launches=launches, forwards=forwards,
+            **_timing(replies, [decode], wall))
+        log("fleet: disagg gateway " + json.dumps(result))
+        result.update(_check_replies(torch, model, prompts, replies,
+                                     FLEET_NEW, "disagg gateway"))
+        return launches, result
+    finally:
+        dg.close()
+
+
+def fleet_phase(torch, np):
+    """Llama-3-8B at full width and depth behind the prefix-routed
+    gateway (two replicas, host KV tier, global index) and behind the
+    disaggregated gateway (one prefill, one decode replica)."""
+    from lzy_tpu_torch.ops import paged_attention as pa
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    prefix_launches, prefix = _prefix_gateway(torch, np, pa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    disagg_launches, disagg = _disagg_gateway(torch, np, pa)
+    result = dict(prefix_gateway=prefix, disagg_gateway=disagg,
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  wall_s=time.monotonic() - t0)
+    log(f"fleet: phase done in {result['wall_s']:.1f} s, peak "
+        f"{result['peak_mem_gib']:.2f} GiB")
+    return prefix_launches + disagg_launches, result
+
+
 # -- flash kernel phase ------------------------------------------------------
 
 #: kernel vs plain version on the same inputs, row by row: for each row of
@@ -1098,12 +1409,16 @@ def main():
     small_phase(torch)
     gc.collect()
     torch.cuda.empty_cache()
+    fleet_launches, fleet = fleet_phase(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
     trained = train_phase(torch)
     kernels = {"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "lzy_tpu_torch/csrc/paged_attention.cu",
         "replaces": "lzy_tpu/ops/paged_attention.py:199",
-        "launches": launches, "max_abs_err": worst,
+        "launches": launches, "launches_fleet": fleet_launches,
+        "max_abs_err": worst,
         "tolerance": "f32 1e-5 + 1e-5*|plain|; bf16 2e-3 + 1e-2*|plain|",
         "ms": decode["ms"], "device_ms": decode["device_ms"],
         "plain_ms": decode["plain_ms"],
@@ -1131,6 +1446,7 @@ def main():
     print(json.dumps({"paged_f64": f64_rows, "flash_f64": flash_f64,
                       "flash_control": control}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"fleet": fleet}))
     print(json.dumps({"train": {k: v for k, v in trained.items()
                                 if k != "losses"},
                       "sdpa_fwd_bwd_ms": sdpa_total}))

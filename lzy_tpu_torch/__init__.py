@@ -13,9 +13,14 @@ every module has a named counterpart:
 - ``ops/paged_attention.py``, ``ops/flash_attention.py`` — the plain
   PyTorch versions and the CUDA kernels' wrappers; ``ops/attention.py``
   and ``ops/chunked_ce.py`` — plain attention and the chunked CE;
-- ``serving/`` — request queue, tenancy, radix KV cache, n-gram
-  speculation and the continuous-batching engines;
-- ``service/inference.py`` — the builder that returns a started engine;
+- ``serving/`` — request queue, tenancy, radix KV cache, host KV tier,
+  n-gram speculation, the continuous-batching engines and the
+  disaggregated prefill/decode engines (``serving/disagg``);
+- ``gateway/`` — the serving fleet: routing, health, autoscaling, the
+  global KV index, the gateway fronts; ``channels/kv_transfer.py`` —
+  the KV export format and in-process transport;
+- ``service/inference.py`` — the build functions that return a started
+  engine or a gateway over a fleet of them;
 - ``parallel/train.py`` and ``train.py`` — the train step, AdamW, MFU,
   and ``python -m lzy_tpu_torch.train``.
 

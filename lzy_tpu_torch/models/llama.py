@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -200,6 +200,20 @@ class PagedKVPool:
         self.v[layer][rows, offs] = qv
         for buf, vals in zip(side, (sk, zk, sv, zv)):
             buf[rows, offs] = vals
+
+    def named_leaves(self) -> List[Tuple[str, torch.Tensor]]:
+        """Every payload tensor (K/V pools, int8 sidecars) under the key
+        the reference's cache tree gives it (``jax.tree_util.keystr``:
+        ``"['layer_0']['attn']['k']"``), so KV exports and host-tier
+        entries name the same leaves in both frameworks."""
+        out = []
+        for i, (k, v, side) in enumerate(zip(self.k, self.v, self.quant)):
+            base = f"['layer_{i}']['attn']"
+            out += [(f"{base}['k']", k), (f"{base}['v']", v)]
+            if side is not None:
+                out += [(f"{base}['{name}']", t)
+                        for name, t in zip(KVQuant._fields, side)]
+        return out
 
     def attend(self, layer: int, q, pos, page_table):
         return paged_attention(q, self.k[layer], self.v[layer], page_table,

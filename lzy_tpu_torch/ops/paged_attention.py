@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -321,10 +322,12 @@ def _launch(q, k_pool, v_pool, page_table, positions, *, dtype, quant,
             rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged-attention kernel launch failed (code {rc})")
-    paged_attention.launches += 1
+    with _LAUNCHES_LOCK:
+        paged_attention.launches += 1
     return out
 
 
 #: kernel launches on CUDA tensors, one per call (the plain CPU path does
-#: not count)
+#: not count); replicas of one fleet launch from their own threads
 paged_attention.launches = 0
+_LAUNCHES_LOCK = threading.Lock()

@@ -18,16 +18,28 @@ matrix, with acceptance computed on the device). Everything else the
 host needs between rounds it already mirrors (``_pos``, ``_cur``, the
 page tables). The KV cache is allocated once and updated in place.
 
-Left out of this slice (see ROADMAP): the KV tiers (demotion/promotion),
-parked conversation chains, cross-replica KV import/export and
-disaggregated prefill/decode.
+The paged engine also carries what the serving fleet builds on:
+
+- a host KV tier (``serving/kv_tier.py``): radix eviction DEMOTES a
+  block's K/V to host memory (one gather per cache leaf per eviction
+  round) and admission PROMOTES it back instead of re-prefilling;
+- parked conversation chains (``park_chain``/``unpark_chain``): a
+  chain's blocks pinned resident across a workflow's tool gap, shed
+  under pool pressure before any request is preempted;
+- KV export and import (``request_kv_export``, ``queue_kv_import``,
+  ``kv_chains``): the cross-replica and disaggregated transfers, which
+  run on the engine's own scheduling thread between rounds, since the
+  pool is updated in place.
+
+Every tier and transfer operation is advisory: a failure costs a local
+re-prefill, never a request.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Any, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,6 +51,7 @@ from lzy_tpu_torch.models.generate import (
 from lzy_tpu_torch.models.llama import DenseKVCache, Llama, PagedKVPool
 from lzy_tpu_torch.serving.kv_cache import (
     NoFreeBlocks, RadixCache, blocks_for, blocks_for_bytes)
+from lzy_tpu_torch.serving.kv_tier import GATHER_BATCHES, HostKVTier
 from lzy_tpu_torch.serving.scheduler import (
     AdmissionError, PromptTooLong, Request, RequestQueue)
 from lzy_tpu_torch.serving.spec import (
@@ -53,6 +66,22 @@ from lzy_tpu_torch.utils.log import get_logger
 from lzy_tpu_torch.utils.metrics import REGISTRY
 
 _LOG = get_logger(__name__)
+
+
+class PoolCorruption(RuntimeError):
+    """A device call failed with a device fault (a CUDA error) while
+    writing the KV cache: the context, and with it every request's
+    blocks, is gone, so the failure is engine-fatal (the loop's death
+    handler fails all outstanding requests), never request-scoped."""
+
+
+def _device_fault(e: BaseException) -> bool:
+    """A CUDA error (sticky for the context), as opposed to a
+    request-scoped failure (bad input, an injected fault)."""
+    accel = getattr(torch, "AcceleratorError", None)
+    return ((accel is not None and isinstance(e, accel))
+            or (isinstance(e, RuntimeError) and "CUDA error" in str(e)))
+
 
 _TTFT = REGISTRY.histogram(
     "lzy_inference_ttft_seconds",
@@ -92,6 +121,21 @@ _OVERLAP_COMMITS = REGISTRY.counter(
 _DISPATCHES = REGISTRY.counter(
     "lzy_kernel_dispatch_total",
     "paged forwards by attention read path (path=cuda|plain)")
+_QUANT_RESIDENT = REGISTRY.gauge(
+    "lzy_kernel_kv_quant_blocks_resident",
+    "int8-quantized KV blocks currently holding live data (summed over "
+    "this process's quantized pools; engines withdraw their share on "
+    "close)")
+# workflow-aware scheduling: a fused generate -> tool-op -> generate
+# chain parks its conversation's radix chain (blocks pinned resident)
+# across the tool gap, so step 2 is a suffix prefill on the same replica
+_PARKED = REGISTRY.counter(
+    "lzy_wfsched_parked_total",
+    "conversation KV chains parked (pinned resident) across tool gaps")
+_PARKED_RELEASED = REGISTRY.counter(
+    "lzy_wfsched_parked_released_total",
+    "parked chain releases by reason "
+    "(reason=repark|ttl|pressure|explicit|shutdown)")
 
 # chaos boundaries: both run inside the engine loop, whose death handler
 # fails outstanding requests and closes the engine
@@ -128,6 +172,15 @@ class _PrefillJob:
 
 
 @dataclasses.dataclass
+class _ParkedChain:
+    """One parked conversation prefix: its radix blocks carry one pinned
+    reference each (``RadixCache.lookup``) until released."""
+    blocks: List[int]
+    tokens: int                 # whole-block prefix length pinned
+    expires_at: float           # engine-clock deadline (TTL sweep)
+
+
+@dataclasses.dataclass
 class EngineStats:
     slots: int
     busy: int
@@ -142,6 +195,21 @@ class EngineStats:
     kv_evictions: Optional[int] = None
     prefix_hit_rate: Optional[float] = None
     prefill_tokens_saved: Optional[int] = None
+    # disaggregated serving: prefill replicas report exports, paged
+    # replicas their imports
+    kv_exports: Optional[int] = None
+    kv_export_blocks: Optional[int] = None
+    kv_imports: Optional[int] = None
+    kv_import_blocks: Optional[int] = None
+    # host KV tier (None without one)
+    kv_host_tier_blocks: Optional[int] = None
+    kv_host_tier_bytes: Optional[int] = None
+    kv_tier_demotions: Optional[int] = None
+    kv_tier_promotions: Optional[int] = None
+    kv_tier_dropped: Optional[int] = None
+    # parked conversation chains and the blocks they pin
+    kv_parked_chains: Optional[int] = None
+    kv_parked_blocks: Optional[int] = None
     spec_tokens: Optional[int] = None
     spec_proposed_tokens: Optional[int] = None
     spec_accepted_tokens: Optional[int] = None
@@ -151,6 +219,11 @@ class EngineStats:
     spec_draft_truncated: Optional[int] = None
     kernel_path: Optional[str] = None
     kv_quant: Optional[str] = None
+
+    def doc(self) -> dict:
+        """The stats as a dict without the fields this engine lacks."""
+        return {k: v for k, v in dataclasses.asdict(self).items()
+                if v is not None}
 
 
 def accept(prop, prop_len, greedy, nxt, pos):
@@ -458,6 +531,8 @@ class InferenceEngine:
         self.queue.pop_request(req)
         try:
             job = self._stage_prefill(slot, req)
+        except PoolCorruption:
+            raise                  # engine-fatal, not this request's
         except Exception as e:  # noqa: BLE001 — request-scoped
             self._fail_request(req, "prefill staging", e)
             return False
@@ -550,6 +625,10 @@ class InferenceEngine:
         except Exception as e:  # noqa: BLE001 — request-scoped: a prefill
             # writes only the job's own cache rows / blocks (torch updates
             # in place, nothing shared was donated)
+            if _device_fault(e):
+                raise PoolCorruption(
+                    f"prefill of {req.id} died with a device fault: "
+                    f"{type(e).__name__}: {e}") from e
             self._abort_prefill_job(job)
             self._fail_request(req, "prefill", e)
             return True
@@ -1052,6 +1131,8 @@ class PagedInferenceEngine(InferenceEngine):
     - Attention reads the pool through the page table: the CUDA kernel
       when the model lives on the card, the plain version on the CPU
       (``kernel_path`` in the stats says which).
+    - ``kv_host_tier_bytes`` puts a host KV tier behind the pool:
+      eviction demotes, admission promotes.
 
     Greedy output equals the ``generate()`` oracle (held by the tests)."""
 
@@ -1064,6 +1145,7 @@ class PagedInferenceEngine(InferenceEngine):
         kv_blocks: Optional[int] = None,
         kv_pool_bytes: Optional[int] = None,
         kv_quant: Optional[str] = None,
+        kv_host_tier_bytes: Optional[int] = None,
         **kwargs,
     ):
         base = decode_config(model.cfg)
@@ -1092,6 +1174,34 @@ class PagedInferenceEngine(InferenceEngine):
             raise ValueError(f"kv_blocks must be >= 2, got {kv_blocks}")
         self._kv_blocks = kv_blocks
         self.kv = RadixCache(kv_blocks, page_size)
+        # the host tier: radix eviction demotes block payloads to host
+        # memory, admission promotes them back (advisory end to end)
+        self.kv_tier = (HostKVTier(kv_host_tier_bytes, page_size)
+                        if kv_host_tier_bytes is not None else None)
+        if self.kv_tier is not None:
+            self.kv.on_evict_batch = self._demote_blocks
+            self.kv.on_insert = self.kv_tier.discard
+        # demotion rounds: ONE gather per cache leaf per eviction round,
+        # not one per evicted block
+        self.kv_tier_gather_rounds = 0
+        #: promotions that failed and fell back to a local prefill
+        self.kv_tier_promotion_failures = 0
+        # cross-replica / disagg I/O, serviced on the scheduling thread
+        # between rounds (the pool is updated in place): queued imports
+        # fold in strictly before admissions; export and park requests
+        # from other threads wait for the loop to run them
+        self._pending_imports: List[Any] = []
+        self._export_requests: List[tuple] = []
+        self._parked: Dict[str, _ParkedChain] = {}
+        self._park_requests: List[tuple] = []
+        self._kv_io_lock = threading.Lock()
+        self.kv_imports = 0
+        self.kv_import_blocks = 0
+        self._in_overlap = False
+        self._quant_resident_seen = 0
+        self._quant_resident_lock = threading.Lock()
+        self._kv_chains_cache = None
+        self._leaves_cache = None
         # page tables: [slots, pages_per_seq] block ids (0 = scratch);
         # _slot_blocks mirrors each row's allocated prefix
         self._tables = np.zeros((slots, self._pages_per_seq), np.int32)
@@ -1116,6 +1226,24 @@ class PagedInferenceEngine(InferenceEngine):
         if self._pt_dev is None:
             self._pt_dev = torch.tensor(self._tables, device=self.device)
         return self._pt_dev
+
+    def _kv_leaves(self):
+        """``[(key, tensor)]`` of every pool payload tensor, under the
+        reference cache tree's keys; computed once (the pool never
+        changes shape)."""
+        if self._leaves_cache is None:
+            self._leaves_cache = self._cache.named_leaves()
+        return self._leaves_cache
+
+    def _overlap_window(self) -> None:
+        # the overlap window runs while the round's forward is queued on
+        # the device: no KV import may land here (its host-to-device copy
+        # would wait behind the forward)
+        self._in_overlap = True
+        try:
+            super()._overlap_window()
+        finally:
+            self._in_overlap = False
 
     # -- admission / prefill -----------------------------------------------
 
@@ -1150,6 +1278,18 @@ class PagedInferenceEngine(InferenceEngine):
                 held += len(job.table)
         return held
 
+    def _can_admit(self, req: Request) -> bool:
+        """The whole prompt must be coverable by free + evictable blocks
+        now. Queued imports land first (a submit may arrive between the
+        top-of-round drain and this gate), and parked chains yield to a
+        live admission before anyone waits."""
+        if not self._in_overlap:
+            self._apply_imports()
+        need = blocks_for(len(req.prompt), self._page)
+        if self.kv.available() < need and self._parked:
+            self._shed_parked_for_pressure(need)
+        return self.kv.available() >= need
+
     def _admit_verdict(self, req: Request) -> str:
         """Tenant KV quota first (skip, do not block other tenants), then
         the global pool budget (the whole queue waits)."""
@@ -1158,14 +1298,20 @@ class PagedInferenceEngine(InferenceEngine):
         if quota is not None and \
                 self._tenant_block_usage(req.tenant) + need > quota:
             return "skip"
-        return "admit" if self.kv.available() >= need else "wait"
+        return "admit" if self._can_admit(req) else "wait"
 
     def _stage_prefill(self, slot: int, req: Request) -> _PrefillJob:
         prompt = req.prompt
         t0 = len(prompt)
+        # tier promotion first: chains that aged out of the pool re-enter
+        # the tree, and the match below hits them like any cached prefix
+        self._promote_for(prompt[:-1])
         # longest cached whole-block prefix, capped at prompt[:-1] so one
         # real token remains to produce the first logits
         blocks, matched = self.kv.match(prompt[:-1])
+        # provenance: the producer of any imported block this prompt hits
+        req.kv_prefilled_by = (self.kv.chain_origin(prompt[:matched])
+                               if matched else None)
         plan = prefill_plan(t0 - matched, self.prefill_chunk,
                             self.cfg.max_seq_len - matched)
         try:
@@ -1217,6 +1363,422 @@ class PagedInferenceEngine(InferenceEngine):
         self.kv.release(job.table)
         job.table = []
 
+    # -- host KV tier (serving/kv_tier.py) -----------------------------------
+
+    @torch.no_grad()
+    def step(self) -> bool:
+        """Paged scheduling round: service KV I/O (queued imports, export
+        and park requests) and sweep expired parks strictly before the
+        base round's admissions: an import queued before a submit is
+        resident by the time that request prefills."""
+        serviced = self._service_kv_io()
+        self._sweep_parked()
+        return super().step() or serviced
+
+    @torch.no_grad()
+    def _demote_blocks(self, victims) -> None:
+        """``RadixCache.on_evict_batch``: copy one eviction round's
+        victims (``[(chain, block, origin)]``) to the tier with ONE
+        ``leaf[ids]`` gather and one device-to-host copy per cache leaf
+        (int8 sidecars included), then file a per-victim COPY of its rows
+        (a view would pin the whole gather in host memory while the
+        tier books only the slice). Every failure, the ``kvtier.demote``
+        fault inside ``put`` included, is a counted drop: the classic
+        eviction it would have been anyway."""
+        tier = self.kv_tier
+        if tier is None:
+            return
+        victims = [(chain, block, origin) for chain, block, origin
+                   in victims if chain]
+        if not victims:
+            return
+        try:
+            ids = torch.tensor([block for _, block, _ in victims],
+                               dtype=torch.long, device=self.device)
+            gathered = {}
+            for key, leaf in self._kv_leaves():
+                gathered[key] = leaf[ids].cpu()
+            self.kv_tier_gather_rounds += 1
+            GATHER_BATCHES.inc()
+        except Exception as e:  # noqa: BLE001 — demotion is advisory
+            for _ in victims:
+                tier.note_dropped()
+            _LOG.debug("kvtier: batched demotion of %d chain(s) dropped "
+                       "(%s: %s)", len(victims), type(e).__name__, e)
+            return
+        for i, (chain, _block, origin) in enumerate(victims):
+            try:
+                leaves = {key: arr[i].clone()
+                          for key, arr in gathered.items()}
+                tier.put(tuple(int(t) for t in chain), leaves,
+                         origin=origin)
+            except Exception as e:  # noqa: BLE001 — demotion is advisory
+                tier.note_dropped()
+                _LOG.debug("kvtier: demotion of a %d-token chain dropped "
+                           "(%s: %s)", len(chain), type(e).__name__, e)
+
+    def kv_tier_match_len(self, tokens: Sequence[int]) -> int:
+        """Tokens coverable by the radix tree plus contiguously
+        promotable tier chains: the gateway's probe before it stages a
+        sibling import. Read-only (no refs, no promotion, no LRU bump)."""
+        page = self._page
+        n_full = len(tokens) // page
+        prefix = [int(t) for t in tokens[:n_full * page]]
+        depth = self.kv.match_len(prefix) // page
+        if self.kv_tier is not None:
+            while depth < n_full and self.kv_tier.has(
+                    tuple(prefix[:(depth + 1) * page])) is not None:
+                depth += 1
+        return depth * page
+
+    @torch.no_grad()
+    def _promote_for(self, tokens: Sequence[int]) -> int:
+        """Extend the radix match for ``tokens`` from the host tier: pop
+        the contiguous tier chains past the resident prefix, allocate
+        fresh blocks for them (evict-then-import: referenced blocks are
+        untouchable), copy their payloads in (``leaf[ids] = rows``) and
+        re-insert the chains with their provenance. Returns the blocks
+        promoted; 0 on any failure (entries re-filed, the request
+        re-prefills the tail locally)."""
+        tier = self.kv_tier
+        if tier is None:
+            return 0
+        page = self._page
+        n_full = len(tokens) // page
+        if n_full == 0:
+            return 0
+        prefix = [int(t) for t in tokens[:n_full * page]]
+        matched = self.kv.match_len(prefix) // page
+        if matched >= n_full:
+            return 0
+        entries: List[Any] = []
+        pin_blocks: List[int] = []
+        blocks: List[int] = []
+        try:
+            CHAOS.hit("kvtier.import")
+            depth = matched
+            while depth < n_full:
+                entry = tier.take(tuple(prefix[:(depth + 1) * page]))
+                if entry is None:
+                    break
+                entries.append(entry)
+                depth += 1
+            if not entries:
+                return 0
+            leaves = self._kv_leaves()
+            keys = {key for key, _ in leaves}
+            if any(set(e.leaves) != keys for e in entries):
+                # fail closed, as import_kv does: an int8 payload
+                # scattered into a float pool would serve garbage
+                raise ValueError(
+                    "tier entry leaves do not match the pool's cache "
+                    "leaves (mismatched kv_quant?)")
+            rows = {}
+            for key, leaf in leaves:
+                data = torch.stack([e.leaves[key] for e in entries])
+                if data.shape[1:] != leaf.shape[1:] or \
+                        data.dtype != leaf.dtype:
+                    raise ValueError(
+                        f"tier leaf {tuple(data.shape)}/{data.dtype} does "
+                        f"not fit pool leaf {tuple(leaf.shape)}/"
+                        f"{leaf.dtype}")
+                rows[key] = data
+            # pin the resident prefix: the allocation may evict, and an
+            # evicted ancestor would orphan the chain being promoted
+            if matched:
+                pin_blocks, _ = self.kv.lookup(prefix[:matched * page])
+            blocks = self.kv.allocate(len(entries))
+            ids = torch.tensor(blocks, dtype=torch.long, device=self.device)
+            for key, leaf in leaves:
+                leaf[ids] = rows[key].to(leaf.device)
+            # per-chain inserts, so each node keeps ITS producer
+            for i, entry in enumerate(entries):
+                self.kv.insert(prefix[:(matched + i + 1) * page],
+                               pin_blocks + blocks[:i + 1],
+                               origin=entry.origin)
+            self.kv.release(blocks)
+            if pin_blocks:
+                self.kv.release(pin_blocks)
+            for _ in entries:
+                # counted when landed, never at take
+                tier.note_promoted("host")
+            return len(entries)
+        except Exception as e:  # noqa: BLE001 — promotion is advisory
+            if _device_fault(e):
+                raise PoolCorruption(
+                    f"tier promotion died with a device fault: "
+                    f"{type(e).__name__}: {e}") from e
+            for entry in entries:
+                tier.restore(entry)
+            if blocks:
+                self.kv.release(blocks)
+            if pin_blocks:
+                self.kv.release(pin_blocks)
+            self.kv_tier_promotion_failures += 1
+            _LOG.info("kvtier: promotion failed (%s: %s); falling back "
+                      "to local prefill", type(e).__name__, e)
+            return 0
+
+    # -- parked conversation chains ------------------------------------------
+
+    def park_chain(self, key: str, tokens: Sequence[int],
+                   ttl_s: float = 30.0, timeout_s: float = 5.0) -> bool:
+        """Pin the longest cached whole-block prefix of ``tokens`` under
+        ``key`` for up to ``ttl_s``, so it survives a fused op chain's
+        tool gap. Re-parking refreshes the pin and the TTL. Runs on the
+        scheduling thread (other threads queue the request and wait);
+        False (nothing cached, timeout, shutdown) is the ordinary path."""
+        if self._closed:
+            return False
+        if self._thread is None:
+            # synchronous mode: the caller IS the scheduling thread
+            try:
+                return self._park_now(str(key), list(tokens), float(ttl_s))
+            except Exception:  # noqa: BLE001 — parking is advisory
+                return False
+        holder: dict = {}
+        done = threading.Event()
+        with self._kv_io_lock:
+            self._park_requests.append(
+                ("park", str(key), list(tokens), float(ttl_s), holder,
+                 done))
+        self.queue.work_available.set()
+        if not done.wait(timeout_s):
+            return False
+        return bool(holder.get("ok"))
+
+    def unpark_chain(self, key: str, timeout_s: float = 5.0) -> bool:
+        """Release a parked chain's pins (its blocks become ordinary LRU
+        cache); False if nothing was parked under ``key``."""
+        if self._closed:
+            return False
+        if self._thread is None:
+            return self._release_parked(str(key), "explicit")
+        holder: dict = {}
+        done = threading.Event()
+        with self._kv_io_lock:
+            self._park_requests.append(
+                ("unpark", str(key), None, 0.0, holder, done))
+        self.queue.work_available.set()
+        if not done.wait(timeout_s):
+            return False
+        return bool(holder.get("ok"))
+
+    def _park_now(self, key: str, tokens: List[int], ttl_s: float) -> bool:
+        old = self._parked.pop(key, None)
+        if old is not None:
+            self.kv.release(old.blocks)
+            _PARKED_RELEASED.inc(reason="repark")
+        # lookup, not match: a park must not move the hit-rate stats or
+        # the LRU order the serving traffic established
+        blocks, matched = self.kv.lookup(tokens)
+        if not blocks:
+            return False
+        self._parked[key] = _ParkedChain(
+            blocks=blocks, tokens=matched,
+            expires_at=self._clock.now() + ttl_s)
+        _PARKED.inc()
+        return True
+
+    def _release_parked(self, key: str, reason: str) -> bool:
+        chain = self._parked.pop(key, None)
+        if chain is None:
+            return False
+        self.kv.release(chain.blocks)
+        _PARKED_RELEASED.inc(reason=reason)
+        return True
+
+    def _sweep_parked(self) -> None:
+        if not self._parked:
+            return
+        now = self._clock.now()
+        for key in [k for k, c in self._parked.items()
+                    if now >= c.expires_at]:
+            self._release_parked(key, "ttl")
+
+    def _release_soonest_parked(self) -> None:
+        key = min(self._parked, key=lambda k: self._parked[k].expires_at)
+        self._release_parked(key, "pressure")
+
+    def _shed_parked_for_pressure(self, need_blocks: int) -> None:
+        """Release parked chains, soonest expiry first, until
+        ``need_blocks`` are coverable: a released pin costs a future
+        re-prefill, a preemption throws away decode work."""
+        while self._parked and self.kv.available() < need_blocks:
+            self._release_soonest_parked()
+
+    # -- cross-replica KV import/export --------------------------------------
+
+    def queue_kv_import(self, export) -> None:
+        """Enqueue a transferred prefix (``KVBlockExport``), applied
+        between rounds strictly before admissions. Queue BEFORE
+        submitting the request that wants it."""
+        with self._kv_io_lock:
+            self._pending_imports.append(export)
+        self.queue.work_available.set()
+
+    def _apply_imports(self) -> bool:
+        with self._kv_io_lock:
+            if not self._pending_imports:
+                return False
+            pending, self._pending_imports = self._pending_imports, []
+        from lzy_tpu_torch.serving.disagg.kv_export import import_kv
+
+        applied = False
+        for export in pending:
+            n = import_kv(self, export)
+            if n:
+                applied = True
+                self.kv_imports += 1
+                self.kv_import_blocks += n
+                self._note_kv_import("applied", n)
+            else:
+                self._note_kv_import("skipped", 0)
+        return applied
+
+    def _note_kv_import(self, outcome: str, blocks: int) -> None:
+        """Metrics hook (the disagg ``DecodeEngine`` counts its imports)."""
+
+    def request_kv_export(self, tokens: Sequence[int],
+                          timeout_s: float = 5.0):
+        """Snapshot this engine's cached KV covering ``tokens``' prefix
+        (radix-resident blocks plus host-tier continuation chains) as one
+        ``KVBlockExport``, gathered on the scheduling thread between
+        rounds. None on timeout, shutdown or nothing cached: the caller
+        re-prefills locally."""
+        if self._closed:
+            return None
+        if self._thread is None:
+            # synchronous mode: the caller IS the scheduling thread
+            try:
+                return self._export_now(tokens)
+            except Exception:  # noqa: BLE001 — export is advisory
+                return None
+        holder: dict = {}
+        done = threading.Event()
+        with self._kv_io_lock:
+            self._export_requests.append((list(tokens), holder, done))
+        self.queue.work_available.set()
+        if not done.wait(timeout_s):
+            return None
+        return holder.get("export")
+
+    def _service_kv_io(self) -> bool:
+        """Between rounds, on the scheduling thread (the only thread that
+        reads or writes the pool): imports, then park and export
+        requests."""
+        did = self._apply_imports()
+        with self._kv_io_lock:
+            if not self._export_requests and not self._park_requests:
+                return did
+            requests, self._export_requests = self._export_requests, []
+            parks, self._park_requests = self._park_requests, []
+        for kind, key, tokens, ttl_s, holder, done in parks:
+            try:
+                holder["ok"] = (self._park_now(key, tokens, ttl_s)
+                                if kind == "park"
+                                else self._release_parked(key, "explicit"))
+            except Exception as e:  # noqa: BLE001 — parking is advisory
+                _LOG.warning("park request failed (%s: %s)",
+                             type(e).__name__, e)
+                holder["ok"] = False
+            finally:
+                done.set()
+            did = True
+        for tokens, holder, done in requests:
+            try:
+                holder["export"] = self._export_now(tokens)
+            except Exception as e:  # noqa: BLE001 — export is advisory
+                _LOG.warning("kv export request failed (%s: %s)",
+                             type(e).__name__, e)
+                holder["export"] = None
+            finally:
+                done.set()
+            did = True
+        return did
+
+    def _export_now(self, tokens: Sequence[int]):
+        """The pinned radix gather (``export_kv``) for the resident
+        prefix, extended block by block from the host tier (``peek``: the
+        source keeps its copy)."""
+        from lzy_tpu_torch.channels.kv_transfer import KVBlockExport
+        from lzy_tpu_torch.serving.disagg.kv_export import export_kv
+
+        page = self._page
+        n_full = len(tokens) // page
+        if n_full == 0:
+            return None
+        prefix = [int(t) for t in tokens[:n_full * page]]
+        export = export_kv(self, prefix)
+        depth = len(export.tokens) // page if export is not None else 0
+        tier = self.kv_tier
+        if tier is None or depth >= n_full:
+            return export
+        extra: List[Any] = []
+        while depth + len(extra) < n_full:
+            entry = tier.peek(
+                tuple(prefix[:(depth + len(extra) + 1) * page]))
+            if entry is None:
+                break
+            extra.append(entry)
+        if not extra:
+            return export
+        keys = set(extra[0].leaves) if export is None else set(export.leaves)
+        if any(set(e.leaves) != keys for e in extra):
+            return export           # mismatched leaf sets: resident part
+        leaves = {}
+        for k in keys:
+            rows = [e.leaves[k][None] for e in extra]
+            if export is not None:
+                rows.insert(0, export.leaves[k])
+            leaves[k] = torch.cat(rows)
+        return KVBlockExport(tokens=prefix[:(depth + len(extra)) * page],
+                             page_size=page, leaves=leaves)
+
+    def kv_chains(self, limit: int = 4096) -> dict:
+        """Chains this replica could serve an import from, by tier (leaf
+        chains of the radix tree, host-tier chains): the advertisement
+        the gateway's global index refreshes each tick. Best-effort and
+        lock-free over the tree; memoized by the tree and tier versions,
+        so an unchanged cache returns the SAME object."""
+        version = (self.kv.structure_version,
+                   self.kv_tier.version if self.kv_tier is not None else 0)
+        cached = self._kv_chains_cache
+        if cached is not None and cached[0] == version:
+            return cached[1]
+        out = {"hbm": [], "host": []}
+        try:
+            # leaf chains only: the index registers every chunk depth of
+            # a chain, so interior chains would only crowd the limit
+            stack = [(self.kv._root, [])]
+            while stack and len(out["hbm"]) < limit:
+                node, prefix = stack.pop()
+                for child in list(node.children.values()):
+                    chain = prefix + list(child.chunk)
+                    if child.children:
+                        stack.append((child, chain))
+                    elif len(out["hbm"]) < limit:
+                        out["hbm"].append(chain)
+        except Exception:  # noqa: BLE001 — advertisement is advisory
+            pass
+        if self.kv_tier is not None:
+            out["host"] = [list(c) for c in self.kv_tier.chains()[:limit]]
+        self._kv_chains_cache = (version, out)
+        return out
+
+    @property
+    def kv_tier_demotions(self) -> int:
+        """Demotions to the host tier; 0 without one (the fleet sums it)."""
+        return self.kv_tier.stats()["demotions"] if self.kv_tier else 0
+
+    @property
+    def kv_tier_promotions(self) -> int:
+        return self.kv_tier.stats()["promotions"] if self.kv_tier else 0
+
+    @property
+    def kv_tier_dropped(self) -> int:
+        return self.kv_tier.stats()["dropped"] if self.kv_tier else 0
+
     # -- decode ----------------------------------------------------------------
 
     def _grow_for_decode(self) -> None:
@@ -1231,6 +1793,10 @@ class PagedInferenceEngine(InferenceEngine):
                 try:
                     block = self.kv.allocate(1)[0]
                 except NoFreeBlocks:
+                    if self._parked:
+                        # parked chains go before ANY resident request
+                        self._release_soonest_parked()
+                        continue
                     if self._preempt_youngest() == slot:
                         break     # preempted ourselves; the slot is free
                     continue
@@ -1314,13 +1880,64 @@ class PagedInferenceEngine(InferenceEngine):
     def stats(self) -> EngineStats:
         s = super().stats()
         ks = self.kv.stats()
-        return dataclasses.replace(
+        if self._kv_quant is not None:
+            # blocks holding int8 data: everything usable not on the
+            # free list (slot-resident plus radix-cached)
+            self._note_quant_resident(ks.blocks_total - ks.blocks_free)
+        parked = list(self._parked.values())
+        s = dataclasses.replace(
             s, kv_page_size=self._page, kv_blocks_total=ks.blocks_total,
             kv_blocks_free=ks.blocks_free, kv_blocks_cached=ks.blocks_cached,
             kv_evictions=ks.evictions,
             prefix_hit_rate=round(ks.hit_rate, 4),
             prefill_tokens_saved=ks.prefill_tokens_saved,
-            kernel_path=self.kernel_path, kv_quant=self._kv_quant)
+            kernel_path=self.kernel_path, kv_quant=self._kv_quant,
+            kv_imports=self.kv_imports,
+            kv_import_blocks=self.kv_import_blocks,
+            kv_parked_chains=len(parked),
+            kv_parked_blocks=sum(len(c.blocks) for c in parked))
+        if self.kv_tier is not None:
+            ts = self.kv_tier.stats()
+            s = dataclasses.replace(
+                s, kv_host_tier_blocks=ts["host_blocks"],
+                kv_host_tier_bytes=ts["host_bytes"],
+                kv_tier_demotions=ts["demotions"],
+                kv_tier_promotions=ts["promotions"],
+                kv_tier_dropped=ts["dropped"])
+        return s
+
+    def _note_quant_resident(self, resident: int) -> None:
+        """This engine's share of the process-wide int8-resident gauge
+        (a delta: several quantized pools share it); pinned at 0 once
+        closed."""
+        with self._quant_resident_lock:
+            if self._closed:
+                resident = 0
+            delta = resident - self._quant_resident_seen
+            self._quant_resident_seen = resident
+        if delta:
+            _QUANT_RESIDENT.add(float(delta))
+
+    def close(self, timeout: float = 10.0) -> None:
+        super().close(timeout)
+        if self._kv_quant is not None:
+            self._note_quant_resident(0)
+        if self.kv_tier is not None:
+            self.kv_tier.close()
+        # wake every waiter on a request the loop will never serve again
+        with self._kv_io_lock:
+            requests, self._export_requests = self._export_requests, []
+            parks, self._park_requests = self._park_requests, []
+            self._pending_imports = []
+        for _, holder, done in requests:
+            holder["export"] = None
+            done.set()
+        for *_, holder, done in parks:
+            holder["ok"] = False
+            done.set()
+        # the loop thread is joined: releasing pins is single-threaded
+        for key in list(self._parked):
+            self._release_parked(key, "shutdown")
 
     def stats_by_tenant(self) -> dict:
         out = super().stats_by_tenant()

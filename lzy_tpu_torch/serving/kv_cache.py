@@ -1,8 +1,7 @@
 """Paged KV-cache block pool with radix prefix caching.
 
 The port's copy of ``lzy_tpu/serving/kv_cache.py`` (the host-side block
-bookkeeping; the K/V data lives on the device, in the engine's pools),
-trimmed of the KV-tier hooks this slice does not port:
+bookkeeping; the K/V data lives on the device, in the engine's pools):
 
 - :class:`BlockPool` — a fixed pool of ``page_size``-token blocks with
   refcounts. Block 0 is the reserved scratch page: idle decode rows and
@@ -11,7 +10,10 @@ trimmed of the KV-tier hooks this slice does not port:
   full-block token chunks. A request reuses every matched block of its
   prompt (prefill skips those tokens); full prompt blocks are inserted
   after prefill; unreferenced leaves are evicted LRU (a logical clock,
-  so eviction order is deterministic).
+  so eviction order is deterministic). Nodes carry the producer of
+  imported KV (``origin``); the eviction and insertion hooks are what
+  the host KV tier (``serving/kv_tier.py``) demotes and discards
+  through.
 """
 
 from __future__ import annotations
@@ -109,7 +111,8 @@ class BlockPool:
 
 
 class _Node:
-    __slots__ = ("chunk", "block", "children", "parent", "last_access")
+    __slots__ = ("chunk", "block", "children", "parent", "last_access",
+                 "origin")
 
     def __init__(self, chunk: Optional[Tuple[int, ...]], block: Optional[int],
                  parent: Optional["_Node"]):
@@ -118,6 +121,9 @@ class _Node:
         self.children: Dict[Tuple[int, ...], "_Node"] = {}
         self.parent = parent
         self.last_access = 0
+        # the remote producer (a disagg prefill replica, a sibling) of an
+        # imported block's KV; None = computed here
+        self.origin: Optional[str] = None
 
 
 class RadixCache:
@@ -134,9 +140,20 @@ class RadixCache:
         self._root = _Node(None, None, None)
         self._node_of: Dict[int, _Node] = {}
         self._clock = 0
+        # bumped only when the TREE changes shape (a node created or
+        # evicted): the gateway's advertisement cache keys on it
+        self.structure_version = 0
         self.evictions = 0
         self.hit_tokens = 0
         self.lookup_tokens = 0
+        # tier hooks: ``on_evict_batch([(chain, block, origin), ...])``
+        # sees one eviction round's victims BEFORE their blocks return to the free
+        # list, so the engine can copy their K/V out; ``on_insert(chain)``
+        # fires per newly created node (the engine drops a demoted copy
+        # of that chain). Guarded: a hook failure degrades to classic
+        # eviction, never a broken tree.
+        self.on_evict_batch = None
+        self.on_insert = None
         self._update_gauges()
 
     def _chunks(self, tokens: Sequence[int]) -> List[Tuple[int, ...]]:
@@ -172,43 +189,110 @@ class RadixCache:
         self._update_gauges()
         return blocks, len(blocks) * self.page_size
 
-    def insert(self, tokens: Sequence[int], blocks: Sequence[int]) -> int:
+    def lookup(self, tokens: Sequence[int]) -> Tuple[List[int], int]:
+        """:meth:`match` without the hit accounting or the LRU bump: the
+        blocks are pinned (one reference each) for an export or a park,
+        which must not distort the stats or the eviction order."""
+        blocks = [child.block for child in self._walk(tokens)]
+        for b in blocks:
+            self.pool.incref(b)
+        return blocks, len(blocks) * self.page_size
+
+    def match_len(self, tokens: Sequence[int]) -> int:
+        """Read-only probe: cached whole-block prefix length in tokens
+        (no refs, no metrics, no LRU bump)."""
+        return len(self._walk(tokens)) * self.page_size
+
+    def insert(self, tokens: Sequence[int], blocks: Sequence[int],
+               origin: Optional[str] = None) -> int:
         """Register full-chunk ``blocks`` under ``tokens``; returns how
-        many nodes were created (existing chunks keep their block)."""
+        many nodes were created (existing chunks keep their block and
+        their provenance; ``origin`` tags the new ones)."""
         self._clock += 1
         node = self._root
         created = 0
+        chain: List[int] = []
         for chunk, block in zip(self._chunks(tokens), blocks):
+            chain.extend(chunk)
             child = node.children.get(chunk)
             if child is None:
                 child = _Node(chunk, block, node)
+                child.origin = origin
                 node.children[chunk] = child
                 self._node_of[block] = child
                 created += 1
+                if self.on_insert is not None:
+                    try:
+                        self.on_insert(tuple(chain))
+                    except Exception:  # noqa: BLE001 — advisory hook
+                        pass
             child.last_access = self._clock
             node = child
+        if created:
+            self.structure_version += 1
         self._update_gauges()
         return created
+
+    def chain_origin(self, tokens: Sequence[int]) -> Optional[str]:
+        """The first imported node's producer along ``tokens``' cached
+        prefix, if any (read-only)."""
+        for child in self._walk(tokens):
+            if child.origin is not None:
+                return child.origin
+        return None
 
     def allocate(self, n: int) -> List[int]:
         """``n`` fresh blocks (refcount 1), evicting LRU unreferenced
         leaves as needed; raises :class:`NoFreeBlocks` before taking any
-        block if the pool cannot cover it."""
+        block if the pool cannot cover it. The evictions of one call are
+        one round: every victim is detached, the demotion hook sees them
+        all at once, and only then do their blocks return to the free
+        list."""
         if n > self.available():
             raise NoFreeBlocks(
                 f"need {n} blocks, only {self.available()} available "
                 f"(free + evictable)")
-        while self.pool.free_count() < n:
-            leaves = self._evictable_leaves()
-            victim = min(leaves, key=lambda node: node.last_access)
-            del victim.parent.children[victim.chunk]
-            del self._node_of[victim.block]
-            self.pool.release_to_free(victim.block)
-            self.evictions += 1
-            _EVICTIONS.inc()
+        victims: List[_Node] = []
+        while self.pool.free_count() + len(victims) < n:
+            victims.append(self._detach_victim())
+        if victims:
+            self._offer_demotions(victims)
+            for victim in victims:
+                self.pool.release_to_free(victim.block)
+                self.evictions += 1
+                _EVICTIONS.inc()
         out = [self.pool.alloc() for _ in range(n)]
         self._update_gauges()
         return out
+
+    def _offer_demotions(self, victims: List[_Node]) -> None:
+        """One eviction round's victims to the demotion hook (guarded)."""
+        if self.on_evict_batch is None:
+            return
+        try:
+            self.on_evict_batch([(self.chain_tokens(v), v.block, v.origin)
+                                 for v in victims])
+        except Exception:  # noqa: BLE001 — demotion is advisory
+            pass
+
+    def _detach_victim(self) -> _Node:
+        """Unlink the LRU unreferenced leaf from the tree without freeing
+        its block (its parents stay intact, so its chain stays readable)."""
+        victim = min(self._evictable_leaves(),
+                     key=lambda node: node.last_access)
+        del victim.parent.children[victim.chunk]
+        del self._node_of[victim.block]
+        self.structure_version += 1
+        return victim
+
+    def chain_tokens(self, node: _Node) -> List[int]:
+        """The root-to-``node`` token chain: the tier identity of the
+        node's block."""
+        chunks: List[Tuple[int, ...]] = []
+        while node is not None and node is not self._root:
+            chunks.append(node.chunk)
+            node = node.parent
+        return [t for chunk in reversed(chunks) for t in chunk]
 
     def release(self, blocks: Sequence[int]) -> None:
         """Drop one reference per block; unreferenced blocks outside the
@@ -249,7 +333,10 @@ class RadixCache:
         return self.pool.free_count() + count(self._root)[0]
 
     def cached_count(self) -> int:
-        return sum(1 for b in self._node_of if self.pool.refcount(b) == 0)
+        # list(): a gateway thread may read stats while the engine's
+        # thread changes the tree
+        return sum(1 for b in list(self._node_of)
+                   if self.pool.refcount(b) == 0)
 
     def _update_gauges(self) -> None:
         _BLOCKS.set(float(self.pool.n_blocks))

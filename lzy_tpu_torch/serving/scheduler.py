@@ -19,7 +19,7 @@ from __future__ import annotations
 import itertools
 import threading
 from collections import deque
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 from lzy_tpu_torch.chaos.faults import CHAOS
 from lzy_tpu_torch.utils.clock import SYSTEM_CLOCK
@@ -78,6 +78,18 @@ class QuotaExceeded(AdmissionError):
         super().__init__(msg, retry_after_s)
         self.tenant = tenant
         self.reason = reason
+
+
+def shed_error(exc_type, msg: str, *, reason: str,
+               retry_after_s: Optional[float] = None):
+    """Build (and count) a load-shedding rejection: the retry-after hint
+    rides both the exception attribute and the message suffix."""
+    SHED_REQUESTS.inc(reason=reason)
+    if retry_after_s is not None:
+        msg = f"{msg} (retry_after_s={retry_after_s:.2f})"
+    err = exc_type(msg)
+    err.retry_after_s = retry_after_s
+    return err
 
 
 def quota_error(msg: str, *, tenant: str, reason: str,
@@ -337,3 +349,10 @@ class RequestQueue:
             self.version += 1
             _QUEUE_DEPTH.set(0.0)
         return out
+
+
+def any_to_tokens(prompt: Any) -> List[int]:
+    """Normalize a caller's prompt (a list of ints) defensively."""
+    if not isinstance(prompt, (list, tuple)) or not prompt:
+        raise ValueError("prompt must be a non-empty list of token ids")
+    return [int(t) for t in prompt]

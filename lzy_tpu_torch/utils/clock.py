@@ -20,6 +20,10 @@ class SystemClock:
         """Monotonic seconds (interval math: deadlines, TTFT)."""
         return time.monotonic()
 
+    def time(self) -> float:
+        """Wall-clock epoch seconds (timestamps compared across hosts)."""
+        return time.time()
+
     def sleep(self, seconds: float) -> None:
         if seconds > 0:
             time.sleep(seconds)

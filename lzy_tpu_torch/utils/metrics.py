@@ -56,6 +56,13 @@ class Gauge:
         with self._lock:
             self._values[_label_key(labels)] = value
 
+    def add(self, delta: float, **labels: str) -> None:
+        """Shift the gauge by ``delta`` (several owners share one gauge,
+        each contributing its own part)."""
+        key = _label_key(labels)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + delta
+
     def collect(self) -> List[str]:
         out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} gauge"]
         with self._lock:

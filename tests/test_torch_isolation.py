@@ -108,5 +108,7 @@ def test_port_registers_only_the_slice_fault_points():
         importlib.import_module(name)
     from lzy_tpu_torch.chaos.faults import CHAOS
 
-    assert CHAOS.points() == ["engine.admit", "engine.prefill",
-                              "engine.step", "slo.admit"]
+    assert CHAOS.points() == [
+        "disagg.stage", "engine.admit", "engine.prefill", "engine.step",
+        "gateway.dispatch", "gateway.health", "kv.fetch", "kv.publish",
+        "kvtier.demote", "kvtier.import", "slo.admit"]
