@@ -72,9 +72,34 @@ failing the run (non-zero exit, no result line) on a miss:
    with the flash launch counts reset just before and read just after
    (2 forward, 1 dQ and 1 dK/dV launch per layer and step under remat);
    the loss must be finite and fall. Prints step time, tokens/s and MFU
-   against the H100 SXM's dense bf16 peak.
+   against the H100 SXM's dense bf16 peak;
+7. workflow — the workflow SDK (``lzy_tpu_torch.Lzy``, ``@op``, the
+   local runtime, ``file://`` storage in a fresh temporary directory)
+   runs the train-then-use workflow at the train phase's ~350M width as
+   three cached ops: ``build_corpus`` (the train bench's seeded batch),
+   ``pretrain`` (4 steps through ``parallel/train.py``'s step: the flash
+   kernels; the f32 params as a tree, and the losses) and ``sample``
+   (the params in a bf16 ``PagedInferenceEngine``, 4 greedy requests of
+   16 new tokens: the paged kernel), with a whiteboard of the losses and
+   tokens. The launch counts are reset just before the first run and
+   read just after (flash 2/1/1 per layer and step, paged layers x the
+   engine's forwards). Checks: (a) the losses, and the params, equal a
+   direct ``train.run_steps`` on the same seed bit for bit (the kernels
+   use no atomics); (b) every reply is held to ``generate()`` over the
+   same params as the fleet's are: the top-2 rule, then every step
+   teacher-forced; (c) a second ``Lzy`` over the
+   same root re-runs the workflow executing no op body, launching no
+   kernel, and reads back the same bits; (d) a fresh ``Lzy`` finds both
+   runs' whiteboards by name and tag with the same losses and tokens;
+   (e) every snapshot entry and whiteboard field is stored as
+   ``torch_tensor``, ``torch_tree`` or ``primitive``, never pickled.
+   Prints each op's wall time, and the times and GB/s of the params
+   (card to file, file to host) through the tree serializer alone and
+   through a snapshot over ``file://``.
 
-Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+Prints a ``{"kernels": [...]}`` line (each kernel's ``launches`` on its
+main-path phase, ``launches_workflow`` on the workflow phase, the paged
+kernel's ``launches_fleet`` too), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Long detail goes to stderr.
 """
 
@@ -710,25 +735,25 @@ def _serve_all(service, prompts, n_new):
 
 def _check_replies(torch, model, prompts, replies, n_new, what):
     """Every reply ok and held to the generate() oracle: the top-2 rule,
-    then teacher forcing."""
+    then teacher forcing. ``what`` prefixes every message."""
     from lzy_tpu_torch.models.generate import generate
 
     compared, off_argmax, shortfall = 0, 0, 0.0
     for i, (prompt, reply) in enumerate(zip(prompts, replies)):
         if reply["status"] != "ok" or len(reply["tokens"]) != n_new:
-            fail(f"fleet: {what} reply {i}: {reply}")
+            fail(f"{what}: reply {i}: {reply}")
         p = torch.tensor([prompt], device="cuda")
         out, logits = generate(model, p, max_new_tokens=n_new,
                                return_logits=True)
         if not torch.isfinite(logits).all():
-            fail("fleet: oracle logits are not finite")
+            fail(f"{what}: oracle logits are not finite")
         compared += _top2_rule(out[0, len(prompt):].tolist(),
                                reply["tokens"], logits[0], GAP_TOL_BF16)
         off, worst = _teacher_forced(torch, model, p, reply["tokens"],
                                      GAP_TOL_BF16)
         off_argmax += off
         shortfall = max(shortfall, worst)
-    log(f"fleet: {what}: {len(replies)} replies ok; {compared}/"
+    log(f"{what}: {len(replies)} replies ok; {compared}/"
         f"{n_new * len(replies)} steps equal generate(); teacher-forced "
         f"{off_argmax} tokens off the argmax, at most {shortfall:.4g} "
         f"below it")
@@ -866,7 +891,7 @@ def _prefix_gateway(torch, np, pa):
         log("fleet: prefix gateway " + json.dumps(result))
         result.update(_check_replies(torch, model, rounds[0] + rounds[1],
                                      replies_a + replies_b, FLEET_NEW,
-                                     "prefix gateway"))
+                                     "fleet: prefix gateway"))
         return launches, result
     finally:
         gw.close()
@@ -923,7 +948,7 @@ def _disagg_gateway(torch, np, pa):
             **_timing(replies, [decode], wall))
         log("fleet: disagg gateway " + json.dumps(result))
         result.update(_check_replies(torch, model, prompts, replies,
-                                     FLEET_NEW, "disagg gateway"))
+                                     FLEET_NEW, "fleet: disagg gateway"))
         return launches, result
     finally:
         dg.close()
@@ -1393,6 +1418,305 @@ def train_phase(torch):
     return result
 
 
+# -- workflow phase ----------------------------------------------------------
+
+#: the README's train-then-use workflow as three cached ops over the port
+WF_NAME = "llama_workflow_run"
+WF_STEPS = 4
+WF_PROMPTS = 4
+WF_PROMPT_LEN = 128
+WF_NEW = 16
+#: what a snapshot entry or whiteboard field of the phase may be stored
+#: as: never the pickle fallback
+WF_FORMATS = ("torch_tensor", "torch_tree", "primitive")
+
+
+def _workflow_ops(torch, record):
+    """``build_corpus`` (the train bench's seeded batch), ``pretrain``
+    (``parallel/train.py``'s step through the flash kernels; the f32
+    params as a tree, and the losses) and ``sample`` (the params in a
+    paged engine, greedy: the paged kernel). Each body writes what it did
+    into ``record``, so a run that executes none leaves it empty."""
+    from lzy_tpu_torch import op
+    from lzy_tpu_torch.serving.engine import PagedInferenceEngine
+    from lzy_tpu_torch.train import run_steps, setup, synthetic_tokens
+
+    @op(cache=True, version="1")
+    def build_corpus(seed: int) -> torch.Tensor:
+        t0 = time.perf_counter()
+        tokens = synthetic_tokens("cuda", seed)
+        torch.cuda.synchronize()
+        record["build_corpus_s"] = time.perf_counter() - t0
+        return tokens
+
+    @op(cache=True, version="1")
+    def pretrain(corpus: torch.Tensor, steps: int) -> tuple[dict, list]:
+        t0 = time.perf_counter()
+        run = setup("cuda", seed=SEED, tokens=corpus)
+        losses = run_steps(run, steps)            # ends on a host read
+        record["pretrain_s"] = time.perf_counter() - t0
+        return dict(run.state.model.state_dict()), losses
+
+    @op(cache=True, version="1")
+    def sample(trained: dict, prompts: torch.Tensor) -> torch.Tensor:
+        t0 = time.perf_counter()
+        model = _serving_model(torch, trained)
+        engine = PagedInferenceEngine(model, slots=WF_PROMPTS,
+                                      page_size=PAGE, prefill_chunk=64)
+        if engine.kernel_path != "cuda":
+            fail(f"workflow: engine resolved kernel {engine.kernel_path!r}")
+        reqs = [engine.submit(p.tolist(), max_new_tokens=WF_NEW)
+                for p in prompts]
+        for _ in range(10_000):
+            if all(r.done for r in reqs):
+                break
+            engine.step()
+        for r in reqs:
+            if r.status != "ok" or len(r.tokens) != WF_NEW:
+                fail(f"workflow: request {r.id}: {r.status} {r.error}")
+        record["sample_forwards"] = engine.forward_calls
+        record["sample_s"] = time.perf_counter() - t0
+        return torch.tensor([r.tokens for r in reqs], dtype=torch.int32)
+
+    return build_corpus, pretrain, sample
+
+
+def _serving_model(torch, params):
+    """The trained params in a bf16 model for serving (no remat, plain
+    loss path: the paged kernel reads its attention)."""
+    import dataclasses
+
+    from lzy_tpu_torch.models.llama import Llama
+    from lzy_tpu_torch.train import pick_config
+
+    cfg = dataclasses.replace(pick_config("cuda")[0], dtype=torch.bfloat16,
+                              param_dtype=torch.bfloat16, remat=False,
+                              fused_ce=False, use_flash_kernel=False)
+    model = Llama(cfg, "cuda")
+    model.load_state_dict(params)
+    model.requires_grad_(False)
+    return model
+
+
+def _workflow_run(torch, root, ops, prompts):
+    """One run of the workflow with a fresh ``Lzy`` over ``root``: the
+    losses, the sampled tokens, the trained params (read back from the
+    store) and the wall time."""
+    from lzy_tpu_torch import Lzy, whiteboard
+    from lzy_tpu_torch.proxy import materialize
+    from lzy_tpu_torch.storage import DefaultStorageRegistry, StorageConfig
+
+    @whiteboard(WF_NAME)
+    class Run:
+        losses: list
+        final_loss: float
+        tokens: object
+
+    reg = DefaultStorageRegistry()
+    reg.register_storage("default", StorageConfig(uri=f"file://{root}"))
+    build_corpus, pretrain, sample = ops
+    t0 = time.perf_counter()
+    with Lzy(storage_registry=reg).workflow("llama_workflow") as wf:
+        trained, losses = pretrain(build_corpus(SEED), WF_STEPS)
+        tokens = sample(trained, prompts)
+        wb = wf.create_whiteboard(Run, tags=[f"seed:{SEED}"])
+        wb.losses = losses
+        wb.tokens = tokens
+        wb.final_loss = losses[-1]        # touching a result runs the ops
+    wall = time.perf_counter() - t0
+    return dict(losses=list(materialize(losses)),
+                tokens=materialize(tokens), params=materialize(trained),
+                wall_s=wall)
+
+
+def _data_path_times(torch, params, root):
+    """The f32 params (on the card) through the tree serializer to a file
+    and back, then through a snapshot over ``file://`` (serialized to a
+    spooled temporary file, then copied to storage while hashed) and
+    back. Reads are warm: the files are in the page cache."""
+    import os
+    import shutil
+
+    from lzy_tpu_torch.serialization import default_registry
+    from lzy_tpu_torch.serialization.torch_ser import TensorTreeSerializer
+    from lzy_tpu_torch.snapshot import Snapshot
+    from lzy_tpu_torch.storage import FsStorageClient
+
+    nbytes = sum(t.numel() * t.element_size() for t in params.values())
+    path = os.path.join(root, "params.lzyt")
+    ser = TensorTreeSerializer()
+    snap = Snapshot(workflow_name="probe", execution_id="probe",
+                    storage_client=FsStorageClient(),
+                    storage_prefix=f"file://{root}",
+                    serializers=default_registry())
+    entry = snap.create_entry("params")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    def write():
+        with open(path, "wb") as f:
+            ser.serialize(params, f)
+
+    def read():
+        with open(path, "rb") as f:
+            return ser.deserialize(f)
+
+    _, ser_s = timed(write)
+    back, de_s = timed(read)
+    _, put_s = timed(lambda: snap.put(entry.id, params))
+    again, get_s = timed(lambda: snap.get(entry.id))
+    for tree in (back, again):
+        for k, v in params.items():
+            if tree[k].dtype != v.dtype or not torch.equal(tree[k], v.cpu()):
+                fail(f"workflow: the data path changed {k}")
+    os.remove(path)
+    shutil.rmtree(os.path.join(root, "lzy_runs"))
+    gb = nbytes / 1e9
+    return dict(params_bytes=nbytes, serialize_s=ser_s, deserialize_s=de_s,
+                serialize_gb_per_s=gb / ser_s, deserialize_gb_per_s=gb / de_s,
+                snapshot_put_s=put_s, snapshot_get_s=get_s,
+                snapshot_put_gb_per_s=gb / put_s,
+                snapshot_get_gb_per_s=gb / get_s)
+
+
+def _params_equal(torch, a, b):
+    return list(a) == list(b) and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k].cpu(), b[k].cpu())
+        for k in a)
+
+
+def _stored_formats(root):
+    """The data format of every snapshot entry (its ``.meta`` sidecar)
+    and every whiteboard field under ``root``."""
+    formats = []
+    for meta in Path(root).rglob("*.meta"):
+        formats.append(json.loads(meta.read_text())["data_format"])
+    for manifest in Path(root).rglob("manifest.json"):
+        for field in json.loads(manifest.read_text())["fields"].values():
+            formats.append(field["data_format"])
+    return formats
+
+
+def workflow_phase(torch, np, smi):
+    """The workflow SDK on the card: train, then sample, as cached ops
+    (checks (a)-(e) of the module docstring)."""
+    import shutil
+    import tempfile
+
+    from lzy_tpu_torch import Lzy
+    from lzy_tpu_torch.ops import flash_attention as fa
+    from lzy_tpu_torch.ops import paged_attention as pa
+    from lzy_tpu_torch.storage import DefaultStorageRegistry, StorageConfig
+    from lzy_tpu_torch.train import run_steps, setup
+
+    root = tempfile.mkdtemp(prefix="lzy_workflow_")
+    try:
+        # (a)'s yardstick: the same steps straight through train.run_steps
+        run = setup("cuda", seed=SEED)
+        cfg = run.cfg
+        direct_losses = run_steps(run, WF_STEPS)
+        direct_params = {k: v.detach().cpu()
+                         for k, v in run.state.model.state_dict().items()}
+        serializer = _data_path_times(torch, run.state.model.state_dict(),
+                                      root)
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        record = {}
+        ops = _workflow_ops(torch, record)
+        prompts = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (WF_PROMPTS, WF_PROMPT_LEN)).astype(np.int32))
+        fa.reset_launches()
+        pa.paged_attention.launches = 0
+        first = _workflow_run(torch, root, ops, prompts)
+        fwd, dq, dkv = fa.launches()
+        paged = pa.paged_attention.launches
+        launches = dict(fwd=fwd, dq=dq, dkv=dkv, paged=paged)
+        want = dict(fwd=2 * cfg.n_layers * WF_STEPS,
+                    dq=cfg.n_layers * WF_STEPS, dkv=cfg.n_layers * WF_STEPS,
+                    paged=cfg.n_layers * record.get("sample_forwards", 0))
+        if launches != want or paged <= 0:
+            fail(f"workflow: launches {launches} != {want} (flash: "
+                 f"{WF_STEPS} steps of {cfg.n_layers} remat layers; paged: "
+                 f"layers x the engine's forwards)")
+        ops_s = {k: v for k, v in record.items() if k.endswith("_s")}
+        log(f"workflow: first run {first['wall_s']:.1f} s; op bodies "
+            f"{json.dumps(ops_s)}; launches {launches}")
+
+        # (a) the losses, and the params, of the direct run: equal bits
+        if first["losses"] != direct_losses:
+            fail(f"workflow: losses {first['losses']} != the direct run's "
+                 f"{direct_losses}")
+        if not _params_equal(torch, first["params"], direct_params):
+            fail("workflow: trained params differ from the direct run's")
+        if not all(math.isfinite(x) for x in first["losses"]) or \
+                not first["losses"][-1] < first["losses"][0]:
+            fail(f"workflow: losses {first['losses']} not finite or not "
+                 f"falling")
+        del direct_params
+
+        # (b) every reply against generate() over the same params
+        tokens = first["tokens"]
+        if tuple(tokens.shape) != (WF_PROMPTS, WF_NEW):
+            fail(f"workflow: sampled tokens of shape {tuple(tokens.shape)}")
+        model = _serving_model(torch, first["params"])
+        replies = [{"status": "ok", "tokens": t} for t in tokens.tolist()]
+        oracle = _check_replies(torch, model, prompts.tolist(), replies,
+                                WF_NEW, "workflow: sample")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) a second Lzy over the same root runs no op body
+        record.clear()
+        before = (fa.launches(), pa.paged_attention.launches)
+        again = _workflow_run(torch, root, ops, prompts)
+        if record or (fa.launches(), pa.paged_attention.launches) != before:
+            fail(f"workflow: the cached re-run executed op bodies "
+                 f"({sorted(record)}) or launched kernels")
+        if again["losses"] != first["losses"] or \
+                not torch.equal(again["tokens"], tokens) or \
+                not _params_equal(torch, again["params"], first["params"]):
+            fail("workflow: the cached re-run's results differ")
+
+        # (d) a fresh Lzy finds both runs' whiteboards by name and tag
+        reg = DefaultStorageRegistry()
+        reg.register_storage("default", StorageConfig(uri=f"file://{root}"))
+        boards = Lzy(storage_registry=reg).whiteboards(
+            name=WF_NAME, tags=[f"seed:{SEED}"])
+        if len(boards) != 2 or any(
+                b.losses != first["losses"]
+                or b.final_loss != first["losses"][-1]
+                or not torch.equal(b.tokens, tokens) for b in boards):
+            fail(f"workflow: {len(boards)} whiteboards found, or their "
+                 f"fields differ from the run's")
+
+        # (e) no entry or field went through the pickle fallback
+        formats = _stored_formats(root)
+        bad = sorted(set(formats) - set(WF_FORMATS))
+        if not formats or bad:
+            fail(f"workflow: stored formats {bad} beyond {WF_FORMATS}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    result = dict(steps=WF_STEPS, losses=first["losses"],
+                  first_run_wall_s=first["wall_s"],
+                  # storage, serialization and the whiteboard: the first
+                  # run's wall time outside the op bodies
+                  first_run_data_path_s=first["wall_s"] - sum(ops_s.values()),
+                  cached_rerun_wall_s=again["wall_s"], op_body_s=ops_s,
+                  **oracle, entries_and_fields=len(formats),
+                  formats=sorted(set(formats)), launches=launches,
+                  card=smi, **serializer)
+    log("workflow: " + json.dumps(result))
+    return launches, result
+
+
 def main():
     if not (REPO / "lzy_tpu_torch" / "csrc").is_dir():
         fail(f"no lzy_tpu_torch/ next to {Path(__file__).name}: run it "
@@ -1413,11 +1737,15 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     trained = train_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wf_launches, workflow = workflow_phase(torch, np, smi)
     kernels = {"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "lzy_tpu_torch/csrc/paged_attention.cu",
         "replaces": "lzy_tpu/ops/paged_attention.py:199",
         "launches": launches, "launches_fleet": fleet_launches,
+        "launches_workflow": wf_launches["paged"],
         "max_abs_err": worst,
         "tolerance": "f32 1e-5 + 1e-5*|plain|; bf16 2e-3 + 1e-2*|plain|",
         "ms": decode["ms"], "device_ms": decode["device_ms"],
@@ -1436,6 +1764,7 @@ def main():
             "source": "lzy_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"lzy_tpu/ops/flash_attention.py:{line}",
             "launches": trained["launches"][kernel],
+            "launches_workflow": wf_launches[kernel],
             "max_abs_err": row["max_abs_err"],
             "worst_row_rel_err": row["worst_row_rel_err"],
             "tolerance": flash_tol,
@@ -1450,6 +1779,7 @@ def main():
     print(json.dumps({"train": {k: v for k, v in trained.items()
                                 if k != "losses"},
                       "sdpa_fwd_bwd_ms": sdpa_total}))
+    print(json.dumps({"workflow": workflow}))
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

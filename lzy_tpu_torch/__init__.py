@@ -22,16 +22,28 @@ every module has a named counterpart:
 - ``service/inference.py`` — the build functions that return a started
   engine or a gateway over a fleet of them;
 - ``parallel/train.py`` and ``train.py`` — the train step, AdamW, MFU,
-  and ``python -m lzy_tpu_torch.train``.
+  and ``python -m lzy_tpu_torch.train``;
+- the workflow SDK, each a trimmed copy of its ``lzy_tpu`` counterpart:
+  ``core/`` (``@op``, ``Lzy``, ``Lzy().workflow()``, call signatures),
+  ``runtime/`` (the in-process ``LocalRuntime``), ``snapshot/``,
+  ``storage/`` (``file://``, ``mem://``), ``proxy/`` (lazy results),
+  ``env/`` (environment variables), ``whiteboards/``, ``types.py`` and
+  ``serialization/``, where ``torch_ser.py`` takes the place of
+  ``jax_ser.py``: the reference's ``LZYA`` tensor layout byte for byte,
+  and a tree format of its own for ``state_dict``-like values.
 
-The package imports ``torch`` and numpy only: never JAX and nothing of
-``lzy_tpu``. Its metrics, fault points and logger live in its OWN
+The package imports ``torch`` and numpy only: never JAX, ``ml_dtypes``
+or anything of ``lzy_tpu`` (``cloudpickle`` only inside the pickle
+fallback, if installed). Its metrics, fault points and logger live in its OWN
 registries (``utils/metrics.REGISTRY``, ``chaos/faults.CHAOS``), so
 importing the port leaves the reference's process-global state alone.
 CUDA-only work (building and loading the kernels) happens at first use,
 never at import.
 """
 
+from lzy_tpu_torch.core.lzy import Lzy, lzy_auth
+from lzy_tpu_torch.core.op import op
 from lzy_tpu_torch.device import resolve_device
+from lzy_tpu_torch.whiteboards.decl import whiteboard
 
-__all__ = ["resolve_device"]
+__all__ = ["Lzy", "lzy_auth", "op", "resolve_device", "whiteboard"]

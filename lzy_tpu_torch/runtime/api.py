@@ -1,0 +1,34 @@
+"""Runtime interface: the port's copy of ``lzy_tpu/runtime/api.py``.
+
+The strategy a workflow uses to execute its call queue. The port has the
+in-process ``LocalRuntime``; the remote runtime waits for the RPC slice.
+"""
+
+from __future__ import annotations
+
+import abc
+from typing import TYPE_CHECKING, Sequence
+
+if TYPE_CHECKING:
+    from lzy_tpu_torch.core.call import LzyCall
+    from lzy_tpu_torch.core.workflow import LzyWorkflow
+
+
+class Runtime(abc.ABC):
+    @abc.abstractmethod
+    def start(self, workflow: "LzyWorkflow") -> None:
+        """Begin an execution session for the workflow."""
+
+    @abc.abstractmethod
+    def exec(self, workflow: "LzyWorkflow", calls: Sequence["LzyCall"]) -> None:
+        """Execute a batch of calls; must not return until every call's
+        results (or its exception) are stored. Raises RemoteCallError on
+        op failure."""
+
+    @abc.abstractmethod
+    def finish(self, workflow: "LzyWorkflow") -> None:
+        """Graceful teardown after a successful workflow exit."""
+
+    @abc.abstractmethod
+    def abort(self, workflow: "LzyWorkflow") -> None:
+        """Teardown after a failed workflow."""

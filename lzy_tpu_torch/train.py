@@ -31,7 +31,7 @@ import dataclasses
 import json
 import subprocess
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -71,10 +71,23 @@ class TrainRun:
     warmup: int
 
 
-def setup(device="cuda", seed: int = 0) -> TrainRun:
+def synthetic_tokens(device="cuda", seed: int = 0) -> torch.Tensor:
+    """The run's batch: ``[batch, seq]`` int32 tokens from a generator
+    seeded with ``seed + 1``, at :func:`pick_config`'s size."""
+    from lzy_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    cfg, batch_size, seq_len, _, _ = pick_config(dev.type)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    return torch.randint(0, cfg.vocab_size, (batch_size, seq_len),
+                         generator=gen, device=dev, dtype=torch.int32)
+
+
+def setup(device="cuda", seed: int = 0,
+          tokens: Optional[torch.Tensor] = None) -> TrainRun:
     """Model with random weights from ``seed``, AdamW at optax's defaults,
-    the train step and one batch of synthetic tokens (the same batch every
-    step, as ``bench.py`` does)."""
+    the train step and one batch of tokens (the same batch every step, as
+    ``bench.py`` does): ``tokens``, else :func:`synthetic_tokens`."""
     from lzy_tpu_torch.device import resolve_device
     from lzy_tpu_torch.models.common import count_params
     from lzy_tpu_torch.models.llama import init_params, make_loss_fn
@@ -82,16 +95,15 @@ def setup(device="cuda", seed: int = 0) -> TrainRun:
         TrainState, adamw, make_train_step)
 
     dev = resolve_device(device)
-    cfg, batch_size, seq_len, steps, warmup = pick_config(dev.type)
+    cfg, _, _, steps, warmup = pick_config(dev.type)
     model = init_params(cfg, seed, dev, trainable=True)
     loss_fn = make_loss_fn(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    tokens = torch.randint(0, cfg.vocab_size, (batch_size, seq_len),
-                           generator=gen, device=dev, dtype=torch.int32)
+    if tokens is None:
+        tokens = synthetic_tokens(dev, seed)
     return TrainRun(cfg=cfg, state=TrainState.create(model, adamw(3e-4)),
                     step=make_train_step(loss_fn), loss_fn=loss_fn,
-                    batch={"tokens": tokens}, n_params=count_params(model),
-                    steps=steps, warmup=warmup)
+                    batch={"tokens": tokens.to(dev)},
+                    n_params=count_params(model), steps=steps, warmup=warmup)
 
 
 def run_steps(run: TrainRun, n: int) -> List[float]:

@@ -7,7 +7,11 @@ and ``tests/test_chaos.py`` arms every point of ``lzy_tpu.chaos.faults.
 CHAOS``. Test files share worker processes, so a port that registered
 into those registries would break those tests depending on where the
 scheduler placed the files. The port therefore imports nothing of
-``lzy_tpu`` (nor JAX) and keeps registries of its own.
+``lzy_tpu`` (nor JAX, nor ``ml_dtypes``) and keeps registries of its
+own. Every subpackage is covered, the workflow SDK's (``core``,
+``runtime``, ``snapshot``, ``storage``, ``serialization``, ``proxy``,
+``env``, ``whiteboards``) included; the SDK imports and runs without
+``cloudpickle``, which the card's machine lacks.
 """
 
 import ast
@@ -24,7 +28,7 @@ import lzy_tpu_torch
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "lzy_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "lzy_tpu")
 
 
 def _port_files():
@@ -60,9 +64,40 @@ def test_no_source_imports_jax_or_the_reference():
     assert not bad, f"port files import JAX or lzy_tpu: {bad}"
 
 
+#: run in the fresh interpreter before anything else: makes importing
+#: ``cloudpickle`` fail, as on a machine that does not have it
+_NO_CLOUDPICKLE = (
+    "import sys\n"
+    "class _Absent:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] == 'cloudpickle':\n"
+    "            raise ImportError('cloudpickle is absent here')\n"
+    "sys.meta_path.insert(0, _Absent())\n")
+
+#: a workflow of tensors, a tree and a number over the port's mem store
+_SDK_DRIVE = (
+    "import torch\n"
+    "from lzy_tpu_torch import Lzy, op\n"
+    "from lzy_tpu_torch.storage import DefaultStorageRegistry, StorageConfig\n"
+    "reg = DefaultStorageRegistry()\n"
+    "reg.register_storage('default', StorageConfig(uri='mem://isolation'))\n"
+    "@op(cache=True)\n"
+    "def f(x: torch.Tensor, n: int) -> tuple[dict, list]:\n"
+    "    return {'w': x * n}, [float(n)]\n"
+    "with Lzy(storage_registry=reg).workflow('w'):\n"
+    "    tree, losses = f(torch.ones(2), 3)\n"
+    "    assert losses == [3.0] and torch.equal(tree['w'], torch.full((2,), 3.))\n")
+
+
+def _fresh(code):
+    return subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+
+
 def test_fresh_import_loads_no_jax_or_reference():
     """Importing every port module in a fresh interpreter pulls in no
-    JAX and no ``lzy_tpu`` module (nothing indirect either)."""
+    JAX and no ``lzy_tpu`` module (nothing indirect either); with
+    ``cloudpickle`` absent the port still imports and runs a workflow."""
     code = (
         "import importlib, sys\n"
         f"for name in {_port_modules()!r}:\n"
@@ -70,10 +105,13 @@ def test_fresh_import_loads_no_jax_or_reference():
         f"bad = sorted(m for m in sys.modules if any(m == f or "
         f"m.startswith(f + '.') for f in {FORBIDDEN!r}))\n"
         "print(bad)\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
+    out = _fresh(code)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+    out = _fresh(_NO_CLOUDPICKLE + code + _SDK_DRIVE +
+                 "print('cloudpickle' in sys.modules)\n")
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["[]", "False"], out.stdout
 
 
 def test_port_leaves_reference_registries_unchanged():
@@ -92,6 +130,10 @@ def test_port_leaves_reference_registries_unchanged():
     for _ in range(10):
         eng.step()
     assert req.result(0)
+    exec(_SDK_DRIVE, {})
+    from lzy_tpu_torch.storage.mem import MemStorageClient
+
+    MemStorageClient.clear_all()
     assert dict(REF_REGISTRY._metrics) == metrics_before
     assert REF_CHAOS.points() == points_before
 
