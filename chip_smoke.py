@@ -95,12 +95,39 @@ failing the run (non-zero exit, no result line) on a miss:
    ``torch_tensor``, ``torch_tree`` or ``primitive``, never pickled.
    Prints each op's wall time, and the times and GB/s of the params
    (card to file, file to host) through the tree serializer alone and
-   through a snapshot over ``file://``.
+   through a snapshot over ``file://``;
+8. remote — the same workflow through the remote runtime of an
+   in-process cluster (``lzy_tpu_torch.service.InProcessCluster(...)
+   .lzy()``: workflow service, graph executor, allocator, thread
+   workers, device-resident channels; SQLite and ``file://`` storage in
+   a fresh temporary directory), with module-level ops
+   (``remote_build_corpus``, ``remote_pretrain``, ``remote_sample``,
+   which workers resolve by reference): graph 1 is ``build_corpus`` ->
+   ``pretrain`` (4 steps at full width and depth), graph 2 fans
+   ``sample`` out over two thread VMs, 4 of 8 prompts each (the first 4
+   are phase 7's); then a cached re-run. Launch counts are reset just
+   before graph 1 and read after graph 2. Checks: (a) the losses and
+   params equal phase 7's bit for bit; (b) every reply is held to
+   ``generate()`` as in phase 7, and the first 4 equal phase 7's; (c)
+   both samples took pretrain's params from the device peer (one device
+   hit each, the producer's very memory), stored as ``torch_tree``; (d)
+   graph 2 reused graph 1's idle VM and launched one more; (e) a
+   module-level op's exception comes back as ``RemoteCallError`` with
+   the remote traceback; (f) the cached re-run runs no graph, no op body
+   and no kernel, and reads back the same bits; (g) after ``shutdown``
+   no thread the cluster started is alive and device memory (live
+   tensors: cuBLAS's per-thread-handle workspaces emptied before both
+   readings) is within ``REMOTE_MEM_SLACK`` of its value before the
+   cluster. Prints each
+   graph's wall time, each op body's, the time outside the bodies with
+   allocation, input reads, serialization and puts, the bytes stored,
+   device hits, the samples' overlap and the cached re-run's time.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's ``launches`` on its
-main-path phase, ``launches_workflow`` on the workflow phase, the paged
-kernel's ``launches_fleet`` too), the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``. Long detail goes to stderr.
+main-path phase, ``launches_workflow`` and ``launches_remote`` on the
+workflow and remote phases, the paged kernel's ``launches_fleet`` too),
+the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Long
+detail goes to stderr.
 """
 
 import gc
@@ -1714,6 +1741,294 @@ def workflow_phase(torch, np, smi):
                   formats=sorted(set(formats)), launches=launches,
                   card=smi, **serializer)
     log("workflow: " + json.dumps(result))
+    local = dict(losses=first["losses"], params=first["params"],
+                 tokens=tokens, prompts=prompts)
+    return launches, result, local
+
+
+# -- remote phase ------------------------------------------------------------
+
+#: the fan-out: the workflow phase's prompts, then as many more
+REMOTE_PROMPTS = 2 * WF_PROMPTS
+#: check (g): device memory back within this of its value before the cluster
+REMOTE_MEM_SLACK = 64 << 20
+#: what the remote ops' bodies record; the thread workers run the very
+#: functions below, in this interpreter
+REMOTE_RECORD = {}
+
+
+# The remote phase's ops are module-level attributes, because a thread
+# worker resolves an op by module reference (``LzyOp.__reduce__``; the
+# card's machine has no ``cloudpickle`` to ship a closure). They become
+# ops in ``_remote_ops``: this script imports the port only once main()
+# has found the checkout.
+
+def remote_build_corpus(seed: int):
+    import torch
+
+    from lzy_tpu_torch.train import synthetic_tokens
+
+    t0 = time.perf_counter()
+    tokens = synthetic_tokens("cuda", seed)
+    torch.cuda.synchronize()
+    REMOTE_RECORD["build_corpus_s"] = time.perf_counter() - t0
+    return tokens
+
+
+def remote_pretrain(corpus, steps: int) -> tuple[dict, list]:
+    from lzy_tpu_torch.train import run_steps, setup
+
+    t0 = time.perf_counter()
+    run = setup("cuda", seed=SEED, tokens=corpus)
+    losses = run_steps(run, steps)                # ends on a host read
+    params = dict(run.state.model.state_dict())
+    REMOTE_RECORD["pretrain_s"] = time.perf_counter() - t0
+    REMOTE_RECORD["pretrain_ptrs"] = {k: v.data_ptr()
+                                      for k, v in params.items()}
+    return params, losses
+
+
+def remote_sample(trained: dict, prompts):
+    import torch
+
+    from lzy_tpu_torch.service import current_gang
+    from lzy_tpu_torch.serving.engine import PagedInferenceEngine
+
+    t0 = time.perf_counter()
+    ptrs = {k: v.data_ptr() for k, v in trained.items()}
+    model = _serving_model(torch, trained)
+    engine = PagedInferenceEngine(model, slots=len(prompts),
+                                  page_size=PAGE, prefill_chunk=64)
+    if engine.kernel_path != "cuda":
+        raise RuntimeError(f"engine resolved kernel {engine.kernel_path!r}")
+    reqs = [engine.submit(p.tolist(), max_new_tokens=WF_NEW)
+            for p in prompts]
+    for _ in range(10_000):
+        if all(r.done for r in reqs):
+            break
+        engine.step()
+    for r in reqs:
+        if r.status != "ok" or len(r.tokens) != WF_NEW:
+            raise RuntimeError(f"request {r.id}: {r.status} {r.error}")
+    REMOTE_RECORD.setdefault("samples", []).append(dict(
+        vm=current_gang()["vm_ids"][0], ptrs=ptrs,
+        forwards=engine.forward_calls, s=time.perf_counter() - t0))
+    return torch.tensor([r.tokens for r in reqs], dtype=torch.int32)
+
+
+def remote_explode(x: int) -> int:
+    raise ValueError(f"remote failure {x}")
+
+
+def _remote_ops():
+    """The four functions above as ``@op``s, rebound in place, so that
+    this module's attribute IS the op (what the workers resolve)."""
+    from lzy_tpu_torch import op
+    from lzy_tpu_torch.core.op import LzyOp
+
+    g = globals()
+    for name in ("remote_build_corpus", "remote_pretrain", "remote_sample"):
+        if not isinstance(g[name], LzyOp):
+            g[name] = op(cache=True, version="1")(g[name])
+    if not isinstance(g["remote_explode"], LzyOp):
+        g["remote_explode"] = op(remote_explode)
+
+
+def _remote_run(torch, cluster, prompts):
+    """build_corpus -> pretrain (graph 1, run by reading the losses),
+    then ``sample`` fanned out over the prompts' two halves (graph 2,
+    run by reading a reply): walls, results, and what the cluster held
+    before the workflow finished."""
+    from lzy_tpu_torch.proxy import materialize
+    from lzy_tpu_torch.proxy.automagic import get_proxy_entry_id
+
+    half = len(prompts) // 2
+    t0 = time.perf_counter()
+    with cluster.lzy().workflow("llama_remote") as wf:
+        trained, losses = remote_pretrain(remote_build_corpus(SEED), WF_STEPS)
+        t1 = time.perf_counter()
+        losses = list(materialize(losses))
+        t2 = time.perf_counter()
+        outs = [remote_sample(trained, prompts[:half]),
+                remote_sample(trained, prompts[half:])]
+        first = materialize(outs[0])
+        t3 = time.perf_counter()
+        tokens = torch.cat([first, materialize(outs[1])])
+        params = materialize(trained)
+        t4 = time.perf_counter()
+        graphs = cluster.store.kv_get("executions", wf.execution_id)["graphs"]
+        meta = json.loads(cluster.storage_client.read_bytes(
+            wf.snapshot.get_entry(get_proxy_entry_id(trained)).storage_uri
+            + ".meta"))
+        held = dict(graphs=graphs,
+                    tasks=[cluster.graph_executor.task_timings(g)
+                           for g in graphs],
+                    device_values=len(cluster.channels.device),
+                    params_format=meta["data_format"])
+    return dict(losses=losses, tokens=tokens, params=params,
+                graph_wall_s=[t2 - t1, t3 - t2], read_back_s=t4 - t3,
+                wall_s=time.perf_counter() - t0, **held)
+
+
+def _device_bytes(torch):
+    """``torch.cuda.memory_allocated()`` as it stands, then with cuBLAS's
+    workspaces emptied: PyTorch keeps one per (handle, stream), and every
+    worker thread that runs a GEMM takes a cuBLAS handle of its own, so
+    the first reading grows by a workspace per new handle while no
+    tensor of the program is alive."""
+    gc.collect()
+    raw = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    return raw, torch.cuda.memory_allocated()
+
+
+def _critical(tasks, parallel):
+    """A graph's task times, added up along its tasks (graph 1 is a
+    chain) or, for parallel tasks, the longest."""
+    keys = ("alloc_s", "read_s", "body_s", "serialize_s", "put_s")
+    pick = max if parallel else sum
+    out = {k: pick(t[k] for t in tasks) for k in keys}
+    out["bytes_written"] = sum(t["bytes_written"] for t in tasks)
+    return out
+
+
+def remote_phase(torch, np, smi, local):
+    """The workflow of phase 7 through an in-process cluster (checks
+    (a)-(g) of the module docstring)."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from lzy_tpu_torch.core.workflow import RemoteCallError
+    from lzy_tpu_torch.ops import flash_attention as fa
+    from lzy_tpu_torch.ops import paged_attention as pa
+    from lzy_tpu_torch.service import InProcessCluster
+
+    _remote_ops()
+    extra = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
+        0, local["params"]["embed_tokens"].shape[0],
+        (REMOTE_PROMPTS - WF_PROMPTS, WF_PROMPT_LEN)).astype(np.int32))
+    prompts = torch.cat([local["prompts"], extra])
+    root = tempfile.mkdtemp(prefix="lzy_remote_")
+    threads0 = set(threading.enumerate())
+    mem0_raw, mem0 = _device_bytes(torch)
+    cluster = InProcessCluster(storage_uri=f"file://{root}",
+                               db_path=os.path.join(root, "meta.db"))
+    try:
+        REMOTE_RECORD.clear()
+        fa.reset_launches()
+        pa.paged_attention.launches = 0
+        run = _remote_run(torch, cluster, prompts)
+        fwd, dq, dkv = fa.launches()
+        launches = dict(fwd=fwd, dq=dq, dkv=dkv,
+                        paged=pa.paged_attention.launches)
+        samples = REMOTE_RECORD.get("samples", [])
+        n_layers = len({k.split(".")[1] for k in run["params"]
+                        if k.startswith("layers.")})
+        want = dict(fwd=2 * n_layers * WF_STEPS, dq=n_layers * WF_STEPS,
+                    dkv=n_layers * WF_STEPS,
+                    paged=n_layers * sum(x["forwards"] for x in samples))
+        if launches != want or launches["paged"] <= 0:
+            fail(f"remote: launches {launches} != {want}")
+        # (a) the local runtime's losses and params, bit for bit
+        if run["losses"] != local["losses"]:
+            fail(f"remote: losses {run['losses']} != the local run's "
+                 f"{local['losses']}")
+        if not _params_equal(torch, run["params"], local["params"]):
+            fail("remote: trained params differ from the local run's")
+        # (b) every reply against generate(); the first half against the
+        # local run's replies to the same prompts
+        tokens = run["tokens"]
+        if tuple(tokens.shape) != (REMOTE_PROMPTS, WF_NEW) or \
+                not torch.equal(tokens[:WF_PROMPTS], local["tokens"]):
+            fail(f"remote: tokens of shape {tuple(tokens.shape)}, or the "
+                 f"first {WF_PROMPTS} differ from the local run's")
+        model = _serving_model(torch, run["params"])
+        replies = [{"status": "ok", "tokens": t} for t in tokens.tolist()]
+        oracle = _check_replies(torch, model, prompts.tolist(), replies,
+                                WF_NEW, "remote: sample")
+        del model
+        # (c) both samples took pretrain's params from the device peer:
+        # one hit each, the producer's memory, stored as a tensor tree
+        graph1, graph2 = run["tasks"]
+        hits = {t["name"]: [] for t in graph1 + graph2}
+        for t in graph1 + graph2:
+            hits[t["name"]].append(t["device_hits"])
+        if len(samples) != 2 or hits.get("remote_sample") != [1, 1] or \
+                any(x["ptrs"] != REMOTE_RECORD.get("pretrain_ptrs")
+                    for x in samples) or run["params_format"] != "torch_tree":
+            fail(f"remote: device hits {hits}, samples {len(samples)}, "
+                 f"params stored as {run['params_format']}, or a sample's "
+                 f"params are not pretrain's memory")
+        # (d) graph 2 ran on two VMs, one of them graph 1's, idle again
+        vms1 = {v for t in graph1 for v in t["vm_ids"]}
+        vms2 = [t["vm_ids"][0] for t in graph2]
+        if len(set(vms2)) != 2 or not vms1 & set(vms2):
+            fail(f"remote: graph 2 ran on {vms2}, graph 1 on {vms1}")
+        # (e) a module-level op's exception comes back with its traceback
+        try:
+            with cluster.lzy().workflow("llama_remote_fail"):
+                _ = remote_explode(7) + 1
+            fail("remote: remote_explode did not raise")
+        except RemoteCallError as e:
+            cause = e.__cause__
+            if not isinstance(cause, ValueError) or not any(
+                    "remote traceback" in n
+                    for n in getattr(cause, "__notes__", [])):
+                fail(f"remote: remote_explode raised {cause!r} without "
+                     f"the remote traceback")
+        # (f) the cached re-run: no op body, no launch, the same bits
+        REMOTE_RECORD.clear()
+        before = (fa.launches(), pa.paged_attention.launches)
+        again = _remote_run(torch, cluster, prompts)
+        if REMOTE_RECORD or again["graphs"] or \
+                (fa.launches(), pa.paged_attention.launches) != before:
+            fail(f"remote: the cached re-run executed {sorted(REMOTE_RECORD)}"
+                 f" or graphs {again['graphs']} or launched kernels")
+        if again["losses"] != run["losses"] or \
+                not torch.equal(again["tokens"], tokens) or \
+                not _params_equal(torch, again["params"], run["params"]):
+            fail("remote: the cached re-run's results differ")
+        formats = _stored_formats(root)
+        bad = sorted(set(formats) - set(WF_FORMATS))
+        if not formats or bad:
+            fail(f"remote: stored formats {bad} beyond {WF_FORMATS}")
+    finally:
+        cluster.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    # (g) no thread left, the device values released
+    left = sorted(t.name for t in set(threading.enumerate()) - threads0)
+    run_walls, read_back_s = run["graph_wall_s"], run["read_back_s"]
+    rerun_s = again["wall_s"]
+    del run, again
+    mem1_raw, mem1 = _device_bytes(torch)
+    if left or abs(mem1 - mem0) > REMOTE_MEM_SLACK:
+        fail(f"remote: after shutdown threads {left} are alive, or device "
+             f"memory is {mem1 - mem0} bytes from before the cluster")
+
+    g1 = _critical(graph1, parallel=False)
+    g2 = _critical(graph2, parallel=True)
+    overlap = max(0.0, min(t["body_end"] for t in graph2)
+                  - max(t["body_start"] for t in graph2))
+    result = dict(
+        graph_wall_s=run_walls,
+        op_body_s=[[t["name"], t["body_s"]] for t in graph1 + graph2],
+        outside_bodies_s=[w - g["body_s"] for w, g in
+                          zip(run_walls, (g1, g2))],
+        alloc_s=[g1["alloc_s"], g2["alloc_s"]],
+        read_inputs_s=[g1["read_s"], g2["read_s"]],
+        serialize_s=[g1["serialize_s"], g2["serialize_s"]],
+        put_s=[g1["put_s"], g2["put_s"]],
+        bytes_written=g1["bytes_written"] + g2["bytes_written"],
+        device_hits=hits, sample_overlap_s=overlap,
+        sample_body_s=[t["body_s"] for t in graph2],
+        client_read_back_s=read_back_s, cached_rerun_s=rerun_s,
+        launches=launches, **oracle, threads_left=len(left),
+        device_mem_delta_bytes=mem1 - mem0,
+        device_mem_delta_with_workspaces_bytes=mem1_raw - mem0_raw,
+        card=smi)
+    log("remote: " + json.dumps(result))
     return launches, result
 
 
@@ -1739,13 +2054,18 @@ def main():
     trained = train_phase(torch)
     gc.collect()
     torch.cuda.empty_cache()
-    wf_launches, workflow = workflow_phase(torch, np, smi)
+    wf_launches, workflow, local = workflow_phase(torch, np, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    remote_launches, remote = remote_phase(torch, np, smi, local)
+    del local
     kernels = {"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "lzy_tpu_torch/csrc/paged_attention.cu",
         "replaces": "lzy_tpu/ops/paged_attention.py:199",
         "launches": launches, "launches_fleet": fleet_launches,
         "launches_workflow": wf_launches["paged"],
+        "launches_remote": remote_launches["paged"],
         "max_abs_err": worst,
         "tolerance": "f32 1e-5 + 1e-5*|plain|; bf16 2e-3 + 1e-2*|plain|",
         "ms": decode["ms"], "device_ms": decode["device_ms"],
@@ -1765,6 +2085,7 @@ def main():
             "replaces": f"lzy_tpu/ops/flash_attention.py:{line}",
             "launches": trained["launches"][kernel],
             "launches_workflow": wf_launches[kernel],
+            "launches_remote": remote_launches[kernel],
             "max_abs_err": row["max_abs_err"],
             "worst_row_rel_err": row["worst_row_rel_err"],
             "tolerance": flash_tol,
@@ -1780,6 +2101,7 @@ def main():
                                 if k != "losses"},
                       "sdpa_fwd_bwd_ms": sdpa_total}))
     print(json.dumps({"workflow": workflow}))
+    print(json.dumps({"remote": remote}))
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,13 @@ every module has a named counterpart:
   ``env/`` (environment variables), ``whiteboards/``, ``types.py`` and
   ``serialization/``, where ``torch_ser.py`` takes the place of
   ``jax_ser.py``: the reference's ``LZYA`` tensor layout byte for byte,
-  and a tree format of its own for ``state_dict``-like values.
+  and a tree format of its own for ``state_dict``-like values;
+- the in-process cluster behind the remote runtime, each a trimmed copy
+  too: ``durable/`` (the SQLite operation store, the step runner),
+  ``service/`` (allocator, thread VMs, worker agents, graph executor,
+  workflow service, ``InProcessCluster``), ``channels/manager.py``
+  (storage and device-resident peers), ``env/provisioning.py`` and
+  ``runtime/remote.py``.
 
 The package imports ``torch`` and numpy only: never JAX, ``ml_dtypes``
 or anything of ``lzy_tpu`` (``cloudpickle`` only inside the pickle
@@ -44,6 +50,10 @@ never at import.
 from lzy_tpu_torch.core.lzy import Lzy, lzy_auth
 from lzy_tpu_torch.core.op import op
 from lzy_tpu_torch.device import resolve_device
+from lzy_tpu_torch.env.environment import LzyEnvironment
+from lzy_tpu_torch.env.provisioning import Provisioning
+from lzy_tpu_torch.types import VmSpec
 from lzy_tpu_torch.whiteboards.decl import whiteboard
 
-__all__ = ["Lzy", "lzy_auth", "op", "resolve_device", "whiteboard"]
+__all__ = ["Lzy", "lzy_auth", "op", "resolve_device", "LzyEnvironment",
+           "Provisioning", "VmSpec", "whiteboard"]

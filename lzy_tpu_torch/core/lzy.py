@@ -28,8 +28,8 @@ def lzy_auth(*, user: str, key_path: Optional[str] = None,
              whiteboards_endpoint: Optional[str] = None) -> None:
     """Set remote credentials through environment variables, the
     reference's contract (``LZY_USER``, ``LZY_KEY_PATH``, ``LZY_ENDPOINT``,
-    ``LZY_WHITEBOARD_ENDPOINT``). They are process-wide; the remote
-    runtime that reads them waits for the RPC slice."""
+    ``LZY_WHITEBOARD_ENDPOINT``). They are process-wide; the RPC
+    client that reads them waits for the RPC control plane."""
     os.environ["LZY_USER"] = user
     if key_path is not None:
         os.environ["LZY_KEY_PATH"] = key_path

@@ -26,6 +26,13 @@ class CallSignature:
     arg_types: Tuple[Optional[Type], ...]
     kwarg_types: Dict[str, Optional[Type]]
     output_types: Tuple[Optional[Type], ...]
+    # what a remote worker receives: the LzyOp wrapper, which pickles by
+    # module reference when it is a module-level attribute
+    payload: Optional[Any] = None
+
+    @property
+    def remote_payload(self) -> Any:
+        return self.payload if self.payload is not None else self.func
 
     @property
     def name(self) -> str:
@@ -78,6 +85,7 @@ def _check(value: Any, ann: Any, where: str, func_name: str) -> None:
 def infer_and_validate_call_signature(
     func: Callable,
     *args: Any,
+    payload: Optional[Any] = None,
     **kwargs: Any,
 ) -> CallSignature:
     sig = inspect.signature(func)
@@ -117,6 +125,7 @@ def infer_and_validate_call_signature(
         arg_types=tuple(arg_types),
         kwarg_types=kwarg_types,
         output_types=tuple(output_types),
+        payload=payload,
     )
 
 

@@ -1,7 +1,8 @@
 """Runtime interface: the port's copy of ``lzy_tpu/runtime/api.py``.
 
-The strategy a workflow uses to execute its call queue. The port has the
-in-process ``LocalRuntime``; the remote runtime waits for the RPC slice.
+The strategy a workflow uses to execute its call queue: the in-process
+``LocalRuntime``, or ``RemoteRuntime`` through the control plane of an
+in-process cluster (``service/harness.InProcessCluster``).
 """
 
 from __future__ import annotations

@@ -36,7 +36,10 @@ class PrimitiveSerializer(Serializer):
         return json.loads(src.read().decode("utf-8"))
 
 
-def _pickler():
+def pickler():
+    """``cloudpickle`` where it is importable, else ``pickle``: the
+    module the fallback, op payloads and stored exceptions are written
+    with (both are read back with ``pickle``)."""
     try:
         import cloudpickle
     except ImportError:
@@ -55,7 +58,7 @@ class CloudpickleSerializer(Serializer):
         return True
 
     def serialize(self, obj: Any, dest: BinaryIO) -> None:
-        _pickler().dump(obj, dest)
+        pickler().dump(obj, dest)
 
     def deserialize(self, src: BinaryIO, typ: Optional[Type] = None) -> Any:
         return pickle.load(src)
@@ -63,7 +66,7 @@ class CloudpickleSerializer(Serializer):
     def data_scheme(self, obj: Any) -> DataScheme:
         scheme = super().data_scheme(obj)
         scheme.meta["python"] = "%d.%d" % sys.version_info[:2]
-        pickler = _pickler()
-        if pickler is not pickle:
-            scheme.meta["cloudpickle"] = pickler.__version__
+        module = pickler()
+        if module is not pickle:
+            scheme.meta["cloudpickle"] = module.__version__
         return scheme

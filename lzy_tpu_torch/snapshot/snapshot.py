@@ -58,6 +58,12 @@ class Snapshot:
         self._lock = threading.Lock()
 
     @property
+    def storage_prefix(self) -> str:
+        """``<storage>/lzy_runs/<workflow>/<execution>``: where this
+        execution's entries, op payloads and logs live."""
+        return self._prefix
+
+    @property
     def storage_client(self) -> StorageClient:
         return self._client
 

@@ -1,6 +1,7 @@
 """Content hashing for cache keys: the port's copy of
-``lzy_tpu/utils/hashing.py``, trimmed to what snapshots and workflow
-cache keys use (module-sync hashing waits for the remote runtime).
+``lzy_tpu/utils/hashing.py``, trimmed to what snapshots, workers and
+workflow cache keys use (module-sync hashing waits for the provisioning
+slice).
 
 Keys are blake2b digests, as in the reference: a stable hash per stored
 entry, combined into a cache key per call, so the two packages derive
@@ -28,6 +29,11 @@ class HashingReader:
 
     def hexdigest(self) -> str:
         return self._hasher.hexdigest()
+
+
+def hash_bytes(data: bytes) -> str:
+    """The digest :class:`HashingReader` gives for the same bytes."""
+    return hashlib.blake2b(data, digest_size=16).hexdigest()
 
 
 def combine_hashes(hashes: Iterable[str]) -> str:

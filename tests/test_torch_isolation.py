@@ -10,8 +10,12 @@ scheduler placed the files. The port therefore imports nothing of
 ``lzy_tpu`` (nor JAX, nor ``ml_dtypes``) and keeps registries of its
 own. Every subpackage is covered, the workflow SDK's (``core``,
 ``runtime``, ``snapshot``, ``storage``, ``serialization``, ``proxy``,
-``env``, ``whiteboards``) included; the SDK imports and runs without
-``cloudpickle``, which the card's machine lacks.
+``env``, ``whiteboards``) and the in-process cluster's (``durable``,
+``service``, ``channels``) included; the SDK imports and runs without
+``cloudpickle``, which the card's machine lacks, locally and through a
+port cluster, whose thread workers resolve a ``__main__`` op by
+reference. The registry check runs after a port cluster has been built,
+driven and shut down.
 """
 
 import ast
@@ -88,6 +92,17 @@ _SDK_DRIVE = (
     "    tree, losses = f(torch.ones(2), 3)\n"
     "    assert losses == [3.0] and torch.equal(tree['w'], torch.full((2,), 3.))\n")
 
+#: the same op through a port cluster (thread workers, device channels)
+_CLUSTER_DRIVE = (
+    "from lzy_tpu_torch.service import InProcessCluster\n"
+    "c = InProcessCluster(storage_uri='mem://isolation-cluster')\n"
+    "try:\n"
+    "    with c.lzy().workflow('w'):\n"
+    "        tree, losses = f(torch.ones(2), 4)\n"
+    "        assert losses == [4.0] and torch.equal(tree['w'], torch.full((2,), 4.))\n"
+    "finally:\n"
+    "    c.shutdown()\n")
+
 
 def _fresh(code):
     return subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -108,7 +123,7 @@ def test_fresh_import_loads_no_jax_or_reference():
     out = _fresh(code)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
-    out = _fresh(_NO_CLOUDPICKLE + code + _SDK_DRIVE +
+    out = _fresh(_NO_CLOUDPICKLE + code + _SDK_DRIVE + _CLUSTER_DRIVE +
                  "print('cloudpickle' in sys.modules)\n")
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["[]", "False"], out.stdout
@@ -130,7 +145,7 @@ def test_port_leaves_reference_registries_unchanged():
     for _ in range(10):
         eng.step()
     assert req.result(0)
-    exec(_SDK_DRIVE, {})
+    exec(_SDK_DRIVE + _CLUSTER_DRIVE, {})
     from lzy_tpu_torch.storage.mem import MemStorageClient
 
     MemStorageClient.clear_all()
@@ -151,6 +166,6 @@ def test_port_registers_only_the_slice_fault_points():
     from lzy_tpu_torch.chaos.faults import CHAOS
 
     assert CHAOS.points() == [
-        "disagg.stage", "engine.admit", "engine.prefill", "engine.step",
+        "allocator.heartbeat", "disagg.stage", "engine.admit", "engine.prefill", "engine.step",
         "gateway.dispatch", "gateway.health", "kv.fetch", "kv.publish",
         "kvtier.demote", "kvtier.import", "slo.admit"]
