@@ -121,11 +121,56 @@ failing the run (non-zero exit, no result line) on a miss:
    cluster. Prints each
    graph's wall time, each op body's, the time outside the bodies with
    allocation, input reads, serialization and puts, the bytes stored,
-   device hits, the samples' overlap and the cached re-run's time.
+   device hits, the samples' overlap and the cached re-run's time;
+9. llm — the llm-op surface (``lzy_tpu_torch.llm``) at Llama-3-8B width
+   and depth (bf16, seed 0, page 16, prefill chunk 64) behind
+   ``build_gateway_service`` with the fleet phase's settings (two
+   replicas over one model, 4 slots, 384 blocks and a 1 GiB host tier
+   each, prefix routing) and a sampling temperature of
+   ``LLM_TEMPERATURE`` for the one request not pinned greedy, configured
+   with ``llm.configure``. Traffic per run: 4 conversations, each a
+   distinct seeded 256-token system prompt and a 64-token question, of
+   three greedy ``llm.generate`` steps of 16 new tokens with a
+   ``Conversation``, the module-level ``@op(cache=True)`` ``llm_tool``
+   between steps (32 tokens drawn from a generator seeded by the reply);
+   beside them one sampled step (``greedy=False``) and one step of 256
+   new tokens whose ``deadline_s`` truncates it; conversation 0's third
+   step streamed; then a ``generate_batch`` of two identical greedy rows
+   and a one-row control. Runs: the local runtime (``Lzy()`` over a
+   fresh ``file://`` root; the stream a ``TokenStreamChannel`` read by a
+   consumer thread), then an ``InProcessCluster(...).lzy()`` (op bodies
+   on thread workers; the stream through ``stream_spill_uri=``, read
+   back with ``StorageTokenStreamReader``), each followed by a cached
+   re-run. The paged launch count is reset before the first run and read
+   after the last. Checks: (a) every greedy reply of the local run is
+   held to ``generate()`` as in phase 5b (the top-2 rule, then teacher
+   forcing), each step with the prompt it saw; (b) the remote run's
+   greedy replies equal the local run's, and where one first differs the
+   oracle's top-2 gap there is below ``GAP_TOL_BF16``; (c) steps 2 and 3
+   of every conversation stay on step 1's replica (routed ``fused`` or
+   ``session``), ``lzy_llm_conversation_affinity_hit_rate`` reads 1.0
+   and ``lzy_wfsched_speculations_total{outcome="ok"}`` > 0; (d) the
+   duplicate batch row makes no request of its own (a dedup hit) and
+   the batch takes as many forwards as the one-row control; (e) each
+   cached re-run sends only the sampled, the truncated and the streamed
+   step to the fleet (3 requests), runs no tool body, counts every other
+   generation in ``lzy_llm_cached_hits_total`` (through the local
+   runtime's hook, and the workflow service's server-side drop) and
+   reads back the same tokens; (f) the local stream's consumer saw a
+   token before the op returned, and the tokens of the channel and of
+   the spill equal the reply's; (g) paged launches == layers x forwards
+   over both replicas; (h) a fresh ``Lzy`` over the local root finds
+   each conversation's ``record_generation`` whiteboards by tag, with
+   the runs' tokens; (i) after ``llm.configure(None)``, the cluster's
+   ``shutdown`` and the gateway's ``close``, no thread the phase started
+   is alive. Prints per-step TTFT and wall (median and range over the
+   conversations), the tool gaps, speculation outcomes, dispatches and
+   dedup hits, each run's wall and the stream's time to first token.
 
 Prints a ``{"kernels": [...]}`` line (each kernel's ``launches`` on its
-main-path phase, ``launches_workflow`` and ``launches_remote`` on the
-workflow and remote phases, the paged kernel's ``launches_fleet`` too),
+main-path phase, ``launches_workflow``, ``launches_remote`` and
+``launches_llm`` on the workflow, remote and llm phases, the paged
+kernel's ``launches_fleet`` too),
 the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Long
 detail goes to stderr.
 """
@@ -2032,6 +2077,490 @@ def remote_phase(torch, np, smi, local):
     return launches, result
 
 
+# -- llm phase ----------------------------------------------------------------
+
+#: the traffic: conversations of a distinct system prompt and a question,
+#: three greedy steps of LLM_NEW tokens each, the tool op between steps
+LLM_CONVERSATIONS = 4
+LLM_SYSTEM = 256
+LLM_QUESTION = 64
+LLM_STEPS = 3
+LLM_NEW = 16
+LLM_TOOL_TOKENS = 32
+#: the replicas' sampling temperature: the sampled step's (every other
+#: request of the phase is pinned greedy)
+LLM_TEMPERATURE = 0.8
+#: the truncated step: a budget its deadline cuts short
+LLM_LONG_NEW = 256
+LLM_DEADLINE_S = 2.0
+#: per run, what each generate call and tool body did (the thread workers
+#: run the very functions below, in this interpreter)
+LLM_RECORD = {"calls": [], "tools": [], "tool_s": []}
+
+
+def llm_tool(g, salt: int, vocab: int) -> list:
+    """The tool op between two steps: the step's prompt and reply, then
+    ``LLM_TOOL_TOKENS`` tokens drawn from a generator seeded by ``salt``
+    and the reply. Made an ``@op(cache=True)`` by ``_llm_ops``."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    LLM_RECORD["tools"].append(salt)
+    rng = np.random.default_rng([SEED, salt, *g.tokens])
+    out = g.full_tokens() + [int(x) for x in
+                             rng.integers(0, vocab, LLM_TOOL_TOKENS)]
+    LLM_RECORD["tool_s"].append(time.perf_counter() - t0)
+    return out
+
+
+def _llm_ops():
+    from lzy_tpu_torch import op
+    from lzy_tpu_torch.core.op import LzyOp
+
+    g = globals()
+    if not isinstance(g["llm_tool"], LzyOp):
+        g["llm_tool"] = op(cache=True, version="1")(g["llm_tool"])
+
+
+def _timed_backend(gw):
+    """The gateway as the llm backend, recording each generate call's
+    session, start and end in ``LLM_RECORD["calls"]``."""
+    from lzy_tpu_torch.llm import ServiceBackend
+
+    class Timed(ServiceBackend):
+        def generate(self, prompt, **kw):
+            t0 = time.perf_counter()
+            try:
+                return super().generate(prompt, **kw)
+            finally:
+                LLM_RECORD["calls"].append(dict(
+                    session=kw.get("session"), start=t0,
+                    end=time.perf_counter(),
+                    streamed=kw.get("stream") is not None))
+
+    return Timed(gw)
+
+
+def _llm_prompts(np, vocab):
+    rng = np.random.default_rng(SEED + 9)
+
+    def draw(n):
+        return [int(x) for x in rng.integers(0, vocab, n)]
+
+    convs = [draw(LLM_SYSTEM) + draw(LLM_QUESTION)
+             for _ in range(LLM_CONVERSATIONS)]
+    return dict(convs=convs, batch=draw(LLM_SYSTEM + LLM_QUESTION),
+                control=draw(LLM_SYSTEM + LLM_QUESTION),
+                sampled=draw(LLM_SYSTEM + LLM_QUESTION),
+                long=draw(LLM_SYSTEM + LLM_QUESTION))
+
+
+def _gen_doc(g, conversation=None):
+    return dict(prompt=list(g.prompt), tokens=list(g.tokens),
+                status=g.status, replica=g.replica, routed_by=g.routed_by,
+                ttft_ms=g.ttft_ms, wall_ms=g.wall_ms, step=g.step,
+                conversation=conversation)
+
+
+def _llm_run(lzy_fn, prompts, vocab, stream, record_wb, engines, name):
+    """One run of the phase's traffic, each ``with`` block on a fresh
+    ``lzy_fn()``: the conversations ``<name>-<i>`` (with the sampled and
+    the truncated step beside their first step), then the duplicate-row
+    batch, then its one-row control. ``stream()`` gives conversation 0's
+    third step its stream keywords. Returns the generations as dicts, the
+    forwards each batch took and the wall time."""
+    from lzy_tpu_torch import llm
+
+    for values in LLM_RECORD.values():
+        values.clear()
+    t0 = time.perf_counter()
+    convs = [llm.Conversation(f"{name}-{i}")
+             for i in range(LLM_CONVERSATIONS)]
+    gens = [[None] * LLM_STEPS for _ in convs]
+    with lzy_fn().workflow("llm_agent") as wf:
+        sampled = llm.generate(prompts["sampled"], max_new_tokens=LLM_NEW,
+                               greedy=False)
+        long = llm.generate(prompts["long"], max_new_tokens=LLM_LONG_NEW,
+                            greedy=True, deadline_s=LLM_DEADLINE_S)
+        current = list(prompts["convs"])
+        for step in range(LLM_STEPS):
+            for i, conv in enumerate(convs):
+                kw = stream() if (i, step) == (0, LLM_STEPS - 1) else {}
+                g = llm.generate(current[i], max_new_tokens=LLM_NEW,
+                                 greedy=True, conversation=conv,
+                                 timeout_s=600, **kw)
+                gens[i][step] = g
+                if step < LLM_STEPS - 1:
+                    current[i] = llm_tool(g, 10 * i + step, vocab)
+        if record_wb:
+            for i, conv in enumerate(convs):
+                llm.record_generation(wf, gens[i][-1], conversation=conv)
+        out = dict(convs=[[_gen_doc(g, i) for g in row]
+                          for i, row in enumerate(gens)],
+                   sampled=_gen_doc(sampled), long=_gen_doc(long))
+    conv_wall = time.perf_counter() - t0
+    llm.current_scheduler().drain()
+    forwards = []
+    for key, rows in (("batch", [prompts["batch"]] * 2),
+                      ("control", [prompts["control"]])):
+        f0 = sum(e.forward_calls for e in engines)
+        with lzy_fn().workflow(f"llm_{key}"):
+            outs = llm.generate_batch(rows, max_new_tokens=LLM_NEW,
+                                      greedy=True)
+            out[key] = [_gen_doc(g) for g in outs]
+        forwards.append(sum(e.forward_calls for e in engines) - f0)
+    out.update(batch_forwards=forwards[0], control_forwards=forwards[1],
+               conv_wall_s=conv_wall, wall_s=time.perf_counter() - t0,
+               calls=list(LLM_RECORD["calls"]),
+               tools=list(LLM_RECORD["tools"]),
+               tool_s=list(LLM_RECORD["tool_s"]))
+    return out
+
+
+def _llm_counters():
+    from lzy_tpu_torch import llm
+    from lzy_tpu_torch.llm import metrics
+
+    sched = llm.current_scheduler()
+    return dict(
+        cached=sum(metrics.CACHED_HITS._values.values()),
+        dedup=sum(metrics.DEDUP_HITS._values.values()),
+        spec={dict(k).get("outcome"): v
+              for k, v in metrics.SPECULATIONS._values.items()},
+        sched=sched.stats() if sched is not None else {})
+
+
+def _delta(a, b):
+    spec = {k: b["spec"].get(k, 0) - a["spec"].get(k, 0) for k in b["spec"]}
+    sched = {k: b["sched"].get(k, 0) - a["sched"].get(k, 0)
+             for k in b["sched"]}
+    return dict(cached=b["cached"] - a["cached"],
+                dedup=b["dedup"] - a["dedup"], spec=spec, sched=sched)
+
+
+def _spread(values):
+    values = sorted(v for v in values if v is not None)
+    if not values:
+        return None
+    return dict(median=values[len(values) // 2], min=values[0],
+                max=values[-1])
+
+
+def _llm_check_run(run, what):
+    """Statuses, the routes of steps 2-3, the sampled and truncated
+    steps, and the duplicate batch row (checks (c) and (d))."""
+    for i, row in enumerate(run["convs"]):
+        for g in row:
+            if g["status"] != "ok" or len(g["tokens"]) != LLM_NEW:
+                fail(f"{what}: conversation {i} step {g['step']}: {g}")
+        if len({g["replica"] for g in row}) != 1 or any(
+                g["routed_by"] not in ("fused", "session") for g in row[1:]):
+            fail(f"{what}: conversation {i} left its pinned replica: "
+                 f"{[(g['replica'], g['routed_by']) for g in row]}")
+    s = run["sampled"]
+    if s["status"] != "ok" or len(s["tokens"]) != LLM_NEW:
+        fail(f"{what}: the sampled step: {s}")
+    if run["long"]["status"] != "cancelled" or \
+            len(run["long"]["tokens"]) >= LLM_LONG_NEW:
+        fail(f"{what}: the truncated step: status {run['long']['status']}, "
+             f"{len(run['long']['tokens'])} tokens")
+    b = run["batch"]
+    if len(b) != 2 or b[0]["tokens"] != b[1]["tokens"] or \
+            b[0]["status"] != "ok":
+        fail(f"{what}: the duplicate batch rows differ: {b}")
+
+
+def _llm_replies(run):
+    """(prompt, reply) of every greedy generation held to the oracle."""
+    docs = [g for row in run["convs"] for g in row]
+    docs += run["batch"][:1] + run["control"]
+    return ([d["prompt"] for d in docs],
+            [dict(status=d["status"], tokens=d["tokens"]) for d in docs])
+
+
+def _llm_match_local(torch, model, local, remote):
+    """Check (b): the remote run's greedy replies equal the local run's;
+    where one first differs, the oracle's top-2 gap at that step is below
+    ``GAP_TOL_BF16``. Returns the steps compared and the differences."""
+    from lzy_tpu_torch.models.generate import generate
+
+    compared, differences = 0, []
+    for i, (lrow, rrow) in enumerate(zip(local["convs"], remote["convs"])):
+        for lg, rg in zip(lrow, rrow):
+            if lg["prompt"] != rg["prompt"]:
+                break
+            if lg["tokens"] == rg["tokens"]:
+                compared += 1
+                continue
+            k = next(j for j, (a, b) in enumerate(zip(lg["tokens"],
+                                                      rg["tokens"]))
+                     if a != b)
+            p = torch.tensor([lg["prompt"]], device="cuda")
+            _, logits = generate(model, p, max_new_tokens=k + 1,
+                                 return_logits=True)
+            top2 = logits[0, k].topk(2).values
+            gap = float(top2[0] - top2[1])
+            if gap >= GAP_TOL_BF16:
+                fail(f"llm: remote conversation {i} step {lg['step']} "
+                     f"differs from the local run at token {k}, where the "
+                     f"oracle's top-2 gap is {gap:.4g} >= {GAP_TOL_BF16}")
+            differences.append(dict(conversation=i, step=lg["step"],
+                                    token=k, gap=gap))
+            break
+    return compared, differences
+
+
+def _llm_timing(run):
+    """Per-step TTFT and wall over conversations, the tool gaps (a step's
+    end to the same conversation's next dispatch: the window the parked
+    KV must survive, which in one barrier also holds the other
+    conversations' steps) and the tool bodies, per run."""
+    steps = [dict(ttft_ms=_spread([row[s]["ttft_ms"] for row in run["convs"]]),
+                  wall_ms=_spread([row[s]["wall_ms"] for row in run["convs"]]))
+             for s in range(LLM_STEPS)]
+    by_session = {}
+    for c in sorted(run["calls"], key=lambda c: c["start"]):
+        if c["session"] is not None:
+            by_session.setdefault(c["session"], []).append(c)
+    gaps = [b["start"] - a["end"] for calls in by_session.values()
+            for a, b in zip(calls, calls[1:])]
+    return dict(steps=steps, tool_gap_s=_spread(gaps),
+                tool_body_s=_spread(run["tool_s"]),
+                conversations_wall_s=run["conv_wall_s"], wall_s=run["wall_s"])
+
+
+def llm_phase(torch, np, smi):
+    """generate -> tool op -> generate at Llama-3-8B width through the
+    port's gateway, in the local runtime and through an in-process
+    cluster, each followed by a cached re-run (checks (a)-(i) of the
+    module docstring)."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+
+    from lzy_tpu_torch import Lzy, llm
+    from lzy_tpu_torch.channels.token_stream import (
+        StorageTokenStreamReader, TokenStreamChannel)
+    from lzy_tpu_torch.ops import flash_attention as fa
+    from lzy_tpu_torch.ops import paged_attention as pa
+    from lzy_tpu_torch.service import InProcessCluster
+    from lzy_tpu_torch.service.inference import build_gateway_service
+    from lzy_tpu_torch.storage import (
+        DefaultStorageRegistry, FsStorageClient, StorageConfig)
+
+    _llm_ops()
+    threads0 = set(threading.enumerate())
+    root = tempfile.mkdtemp(prefix="lzy_llm_")
+    t_phase = time.monotonic()
+    gw = build_gateway_service(
+        "llama3_8b", seed=SEED, device="cuda", replicas=FLEET_REPLICAS,
+        slots=FLEET_SLOTS, paged=True, page_size=PAGE,
+        kv_blocks=FLEET_BLOCKS, kv_host_tier_bytes=FLEET_HOST_TIER,
+        routing="prefix", autoscale=False, prefill_chunk=64,
+        warm_start=True, start=False, temperature=LLM_TEMPERATURE)
+    cluster = None
+    try:
+        engines = _engines(gw)
+        model = engines[0].model
+        cfg = model.cfg
+        vocab = cfg.vocab_size
+        prompts = _llm_prompts(np, vocab)
+        llm.configure(_timed_backend(gw))
+
+        def local_lzy():
+            reg = DefaultStorageRegistry()
+            reg.register_storage("default",
+                                 StorageConfig(uri=f"file://{root}/local"))
+            return Lzy(storage_registry=reg)
+
+        seen = {}
+
+        def local_stream():
+            ch = TokenStreamChannel()
+            got = seen.setdefault("stream", dict(tokens=[], first=None))
+            got["tokens"].clear()
+            got["first"] = None
+
+            def consume():
+                for tok in ch:
+                    if got["first"] is None:
+                        got["first"] = time.perf_counter()
+                    got["tokens"].append(tok)
+
+            seen["consumer"] = threading.Thread(target=consume,
+                                                name="llm-consumer")
+            seen["consumer"].start()
+            return dict(stream=ch)
+
+        def finish_stream(run, what):
+            """Check (f) for the local runs."""
+            seen["consumer"].join(60)
+            call = next(c for c in run["calls"] if c["streamed"])
+            reply = run["convs"][0][-1]["tokens"]
+            got = seen["stream"]
+            if got["first"] is None or not got["first"] < call["end"] or \
+                    got["tokens"] != reply:
+                fail(f"{what}: the stream consumer saw {got['tokens']} "
+                     f"(first at {got['first']}, the op returned at "
+                     f"{call['end']}); the reply is {reply}")
+            return got["first"] - call["start"]
+
+        pa.paged_attention.launches = 0
+        fa.reset_launches()
+        calls0 = sum(e.forward_calls for e in engines)
+        runs = {}
+
+        # the local runtime, then its cached re-run
+        for label in ("local", "local_cached"):
+            c0 = _llm_counters()
+            f0 = sum(e.forward_calls for e in engines)
+            l0 = pa.paged_attention.launches
+            finished = gw.stats()["requests_finished"]
+            run = _llm_run(local_lzy, prompts, vocab, local_stream,
+                           record_wb=True, engines=engines,
+                           name="llm-local")
+            run["stream_ttft_s"] = finish_stream(run, f"llm: {label}")
+            run.update(counters=_delta(c0, _llm_counters()),
+                       requests=gw.stats()["requests_finished"] - finished,
+                       forwards=sum(e.forward_calls for e in engines) - f0,
+                       launches=pa.paged_attention.launches - l0)
+            runs[label] = run
+
+        # the remote runtime: each op body on a thread worker
+        cluster = InProcessCluster(storage_uri=f"file://{root}/remote",
+                                   db_path=os.path.join(root, "meta.db"))
+        spill = {"n": 0}
+
+        def remote_stream():
+            spill["n"] += 1
+            spill["uri"] = f"file://{root}/spill/{spill['n']}"
+            return dict(stream_spill_uri=spill["uri"])
+
+        for label in ("remote", "remote_cached"):
+            c0 = _llm_counters()
+            f0 = sum(e.forward_calls for e in engines)
+            l0 = pa.paged_attention.launches
+            finished = gw.stats()["requests_finished"]
+            # conversations of their own: the local run's pins do not
+            # decide their first step's route
+            run = _llm_run(cluster.lzy, prompts, vocab, remote_stream,
+                           record_wb=False, engines=engines,
+                           name="llm-remote")
+            back = StorageTokenStreamReader(FsStorageClient(),
+                                            spill["uri"]).read_all(60)
+            if back["tokens"] != run["convs"][0][-1]["tokens"] or \
+                    back["status"] != "ok":
+                fail(f"llm: {label}: the spilled stream {back} differs "
+                     f"from the reply")
+            run.update(counters=_delta(c0, _llm_counters()),
+                       requests=gw.stats()["requests_finished"] - finished,
+                       forwards=sum(e.forward_calls for e in engines) - f0,
+                       launches=pa.paged_attention.launches - l0)
+            runs[label] = run
+        llm.current_scheduler().drain()
+        launches = pa.paged_attention.launches
+        forwards = sum(e.forward_calls for e in engines) - calls0
+        flash = fa.launches()
+
+        for label, run in runs.items():
+            _llm_check_run(run, f"llm: {label}")
+        local, remote = runs["local"], runs["remote"]
+        # (a) every greedy reply of the local run against generate()
+        oracle = _check_replies(torch, model, *_llm_replies(local), LLM_NEW,
+                                "llm: local")
+        # (b) the remote run's greedy replies against the local run's
+        compared, differences = _llm_match_local(torch, model, local, remote)
+        # (c) the affinity gauge and the speculations
+        rate = llm.metrics.CONVERSATION_AFFINITY_RATE._values.get(())
+        spec_ok = sum(r["counters"]["spec"].get("ok", 0)
+                      for r in runs.values())
+        if rate != 1.0 or spec_ok <= 0:
+            fail(f"llm: affinity gauge {rate}, speculations ok {spec_ok}")
+        # (d) the duplicate row made no request of its own
+        for label in ("local", "remote"):
+            run = runs[label]
+            if run["counters"]["dedup"] < 1:
+                fail(f"llm: {label}: no dedup hit for the duplicate row")
+        if local["batch_forwards"] != local["control_forwards"]:
+            fail(f"llm: the two-row batch took {local['batch_forwards']} "
+                 f"forwards, one row {local['control_forwards']}")
+        # (e) the cached re-runs: only the sampled, the truncated and the
+        # streamed step go to the fleet; the other generations are hits
+        cacheable = LLM_CONVERSATIONS * LLM_STEPS - 1 + 2
+        for label in ("local_cached", "remote_cached"):
+            run, first = runs[label], runs[label.split("_")[0]]
+            if run["requests"] != 3 or run["tools"] or \
+                    run["counters"]["cached"] != cacheable:
+                fail(f"llm: {label}: {run['requests']} requests, tool "
+                     f"bodies {run['tools']}, cache hits "
+                     f"{run['counters']['cached']} (want 3, none, "
+                     f"{cacheable})")
+            # every generation but conversation 0's streamed third step
+            cached = [(a["tokens"], b["tokens"]) for ra, rb in zip(
+                first["convs"], run["convs"]) for a, b in zip(ra, rb)
+                if (a["conversation"], a["step"]) != (0, LLM_STEPS)]
+            cached += [(a["tokens"], b["tokens"]) for a, b in zip(
+                first["batch"] + first["control"],
+                run["batch"] + run["control"])]
+            if any(a != b for a, b in cached):
+                fail(f"llm: {label}: cached generations differ from the "
+                     f"first run's")
+        # (g) every forward of the phase read its attention through the
+        # paged kernel
+        if launches <= 0 or launches != cfg.n_layers * forwards:
+            fail(f"llm: paged launches {launches} != {cfg.n_layers} layers "
+                 f"x {forwards} forwards")
+        # (h) a fresh Lzy finds every conversation's whiteboards
+        for i in range(LLM_CONVERSATIONS):
+            boards = local_lzy().whiteboards(
+                name=llm.GENERATION_WB_NAME,
+                tags=[f"conversation:llm-local-{i}"])
+            want = [runs[k]["convs"][i][-1]["tokens"]
+                    for k in ("local", "local_cached")]
+            if len(boards) != 2 or sorted(b.tokens for b in boards) != \
+                    sorted(want) or any(
+                        b.model_digest != gw.model_digest
+                        or b.provenance["step"] != LLM_STEPS
+                        for b in boards):
+                fail(f"llm: conversation {i}: {len(boards)} whiteboards, "
+                     f"or their fields differ from the runs'")
+        sched = llm.current_scheduler().stats()
+    finally:
+        llm.configure(None)
+        if cluster is not None:
+            cluster.shutdown()
+        gw.close()
+        shutil.rmtree(root, ignore_errors=True)
+    # (i) no thread the phase started is alive
+    left = sorted(t.name for t in set(threading.enumerate()) - threads0)
+    if left:
+        fail(f"llm: threads {left} are alive after the phase")
+
+    # a cached re-run's generations carry the first run's timings: only
+    # the first runs' per-step times are the runs' own
+    result = dict(
+        runs={label: dict(
+            **(_llm_timing(run) if "cached" not in label else
+               dict(wall_s=run["wall_s"])),
+            requests=run["requests"], forwards=run["forwards"],
+            launches=run["launches"], counters=run["counters"],
+            batch_forwards=run["batch_forwards"],
+            control_forwards=run["control_forwards"],
+            sampled_tokens=run["sampled"]["tokens"],
+            truncated_tokens=len(run["long"]["tokens"]),
+            stream_ttft_s=run.get("stream_ttft_s"))
+            for label, run in runs.items()},
+        remote_steps_equal_local=compared,
+        remote_differences=differences, **oracle,
+        affinity_rate=rate, scheduler=sched, launches=launches,
+        forwards=forwards, flash_launches=list(flash),
+        phase_wall_s=time.monotonic() - t_phase, card=smi)
+    log("llm: " + json.dumps(result))
+    return dict(paged=launches, fwd=flash[0], dq=flash[1], dkv=flash[2]), \
+        result
+
+
 def main():
     if not (REPO / "lzy_tpu_torch" / "csrc").is_dir():
         fail(f"no lzy_tpu_torch/ next to {Path(__file__).name}: run it "
@@ -2059,6 +2588,9 @@ def main():
     torch.cuda.empty_cache()
     remote_launches, remote = remote_phase(torch, np, smi, local)
     del local
+    gc.collect()
+    torch.cuda.empty_cache()
+    llm_launches, llm_result = llm_phase(torch, np, smi)
     kernels = {"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "lzy_tpu_torch/csrc/paged_attention.cu",
@@ -2066,6 +2598,7 @@ def main():
         "launches": launches, "launches_fleet": fleet_launches,
         "launches_workflow": wf_launches["paged"],
         "launches_remote": remote_launches["paged"],
+        "launches_llm": llm_launches["paged"],
         "max_abs_err": worst,
         "tolerance": "f32 1e-5 + 1e-5*|plain|; bf16 2e-3 + 1e-2*|plain|",
         "ms": decode["ms"], "device_ms": decode["device_ms"],
@@ -2086,6 +2619,7 @@ def main():
             "launches": trained["launches"][kernel],
             "launches_workflow": wf_launches[kernel],
             "launches_remote": remote_launches[kernel],
+            "launches_llm": llm_launches[kernel],
             "max_abs_err": row["max_abs_err"],
             "worst_row_rel_err": row["worst_row_rel_err"],
             "tolerance": flash_tol,
@@ -2102,6 +2636,7 @@ def main():
                       "sdpa_fwd_bwd_ms": sdpa_total}))
     print(json.dumps({"workflow": workflow}))
     print(json.dumps({"remote": remote}))
+    print(json.dumps({"llm": llm_result}))
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

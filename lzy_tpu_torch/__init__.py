@@ -36,7 +36,12 @@ every module has a named counterpart:
   ``service/`` (allocator, thread VMs, worker agents, graph executor,
   workflow service, ``InProcessCluster``), ``channels/manager.py``
   (storage and device-resident peers), ``env/provisioning.py`` and
-  ``runtime/remote.py``.
+  ``runtime/remote.py``;
+- the llm-op surface: ``llm/`` (``llm.generate`` as a cached op,
+  ``Conversation``, ``Generation``, the workflow scheduler with in-flight
+  dedup, fused op chains and speculative next-step prefill, generation
+  whiteboards), ``channels/token_stream.py`` (token streams with a
+  storage spill) and ``utils/backoff.py``.
 
 The package imports ``torch`` and numpy only: never JAX, ``ml_dtypes``
 or anything of ``lzy_tpu`` (``cloudpickle`` only inside the pickle
@@ -54,6 +59,7 @@ from lzy_tpu_torch.env.environment import LzyEnvironment
 from lzy_tpu_torch.env.provisioning import Provisioning
 from lzy_tpu_torch.types import VmSpec
 from lzy_tpu_torch.whiteboards.decl import whiteboard
+from lzy_tpu_torch import llm
 
 __all__ = ["Lzy", "lzy_auth", "op", "resolve_device", "LzyEnvironment",
-           "Provisioning", "VmSpec", "whiteboard"]
+           "Provisioning", "VmSpec", "whiteboard", "llm"]

@@ -1,1 +1,3 @@
-"""Data-plane transfers between replicas (``kv_transfer``)."""
+"""Data-plane transfers: KV blocks between replicas (``kv_transfer``),
+op values between workers (``manager``) and token streams
+(``token_stream``)."""

@@ -27,6 +27,26 @@ if TYPE_CHECKING:
 class CacheSettings:
     cache: bool = False
     version: str = "0.0"
+    #: arg names (bound positional or keyword) left out of the cache key:
+    #: operational knobs that cannot change the output (``llm.generate``
+    #: threads its timeouts, deadline and stream wiring through here)
+    exclude_args: Tuple[str, ...] = ()
+
+
+def result_cacheable(func: Any, result: Any) -> bool:
+    """Per-RESULT cache veto, asked by every runtime before a cacheable
+    op's output is stored at its cache URI. An op that can return a
+    degraded but valid value (a deadline-truncated generation) sets
+    ``func.__lzy_result_cacheable__ = lambda result: ...``; a vetoed
+    result is still stored for this execution's consumers but never
+    satisfies a later cache check. A probe that fails vetoes."""
+    probe = getattr(func, "__lzy_result_cacheable__", None)
+    if probe is None:
+        return True
+    try:
+        return bool(probe(result))
+    except Exception:  # noqa: BLE001 — conservative: do not cache
+        return False
 
 
 class LzyCall:

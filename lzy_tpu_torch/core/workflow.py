@@ -159,13 +159,17 @@ class LzyWorkflow:
         result still pending in this batch enters by its *lineage key*,
         hash(op name, version, input keys) computed in registration order,
         so a cached op stays cacheable downstream of non-cached producers
-        whose output URIs are execution-scoped."""
+        whose output URIs are execution-scoped. The arguments a call's
+        ``CacheSettings.exclude_args`` names are left out of its key."""
         snapshot = self.snapshot
         lineage: dict = {}
         for call in queue:
             parts = [call.op_name, call.cache_settings.version]
             named_inputs = list(zip(call.signature.param_names, call.arg_entry_ids))
             named_inputs += sorted(call.kwarg_entry_ids.items())
+            excluded = set(call.cache_settings.exclude_args)
+            named_inputs = [(n, e) for n, e in named_inputs
+                            if n not in excluded]
             for name, eid in named_inputs:
                 entry = snapshot.get_entry(eid)
                 if entry.hash:

@@ -221,6 +221,11 @@ class PrefixAffinityRouter:
                 _ROUTED.inc(reason="fused")
                 _IMBALANCE.set(float(max(loads.values())
                                      - min(loads.values())))
+                session_rate = self._affinity_rate_locked()
+            # a fused route is a pinned conversation route that kept its
+            # pin: the gauge counts it (the reference's counts only
+            # "session" routes, so with fusion on it is never set)
+            _session_rate_gauge().set(session_rate)
             return pinned, "fused"
         session_rate = None
         # hash the prompt ONCE, before taking the lock: under routing
@@ -245,8 +250,7 @@ class PrefixAffinityRouter:
                             loads[pin[0]] <= min_load + self.max_imbalance:
                         choice, reason = pin[0], "session"
                         self._session_hits += 1
-                    session_rate = (self._session_hits
-                                    / self._session_routed)
+                    session_rate = self._affinity_rate_locked()
             if choice is None:
                 best_id, best_match = None, 0
                 for rid in loads:
@@ -274,6 +278,13 @@ class PrefixAffinityRouter:
             # every concurrent route behind the router lock
             _session_rate_gauge().set(session_rate)
         return choice, reason
+
+    def _affinity_rate_locked(self) -> float:
+        """Share of pinned conversation routes that kept their pin:
+        session hits and fused routes over session routes and fused
+        routes."""
+        return ((self._session_hits + self._fused_routed)
+                / (self._session_routed + self._fused_routed))
 
     def stats(self) -> dict:
         with self._lock:

@@ -1,8 +1,8 @@
 """The gateway front: one ``generate`` endpoint over a fleet of engines.
 
 The port's copy of ``lzy_tpu/gateway/service.py`` (``journal=None``; the
-token streams, IAM scoping and crash-recovery journal of the reference
-wait for the RPC slice). What it adds over one engine:
+IAM scoping and crash-recovery journal of the reference wait for the RPC
+slice). What it adds over one engine:
 
 - **cache-aware dispatch**: each request is routed by the
   ``PrefixAffinityRouter`` (longest expected cached prefix, bounded load
@@ -11,6 +11,8 @@ wait for the RPC slice). What it adds over one engine:
   replica (engine loop death, preemption, replica shutdown) is
   resubmitted to another as ``prompt + emitted``, and the reply is
   ``emitted + continuation``; request-scoped failures are not retried;
+- **token streams** (``generate(stream=)``): the channel is attached at
+  the fence on every attempt, so a failover resumes it byte-identically;
 - **the fleet-global KV index** (``kv_index``): a routed replica about
   to miss a prefix a sibling holds, in its pool or its host tier, gets
   the sibling's blocks exported, moved over the transport and queued
@@ -172,42 +174,58 @@ class GatewayService:
                  greedy: Optional[bool] = None,
                  tenant: Optional[str] = None,
                  priority: Optional[int] = None,
-                 session: Optional[str] = None) -> dict:
+                 session: Optional[str] = None,
+                 stream=None) -> dict:
         """Blocking generate over the fleet: the engine's contract plus
         route metadata (``replica``, ``routed_by``, ``failovers``) in
         the reply. Only when EVERY routable replica refuses admission
         does the caller see ``Unavailable``. ``greedy`` is carried across
         failover resubmissions; ``session`` pins a conversation to the
-        replica holding its earlier steps (within the imbalance bound)."""
-        if self.kv_index is not None:
-            self._kvtier_tls.meta = {}   # fresh per call
-        tenant = tenant or DEFAULT_TENANT
-        prompt = any_to_tokens(prompt)
-        self._check_prompt_len(prompt, int(max_new_tokens))
-        policy = self._slo_admit(tenant, prompt)
-        if policy is not None:
-            priority = policy.effective_priority(priority)
-        if self._draining:
-            raise self._shed_error(
-                Unavailable, "gateway is draining; retry another endpoint",
-                reason="draining", retry_after_s=None)
-        if not self._waiters.acquire(blocking=False):
-            raise self._shed_error(
-                Unavailable,
-                "all gateway waiter threads are busy; retry later",
-                reason="waiters_busy", retry_after_s=0.25)
-        with self._lock:
-            self._inflight += 1
+        replica holding its earlier steps (within the imbalance bound).
+
+        ``stream`` (a ``channels.token_stream.TokenStreamChannel``)
+        receives tokens as the engine emits them. Its position is the
+        failover fence, so a mid-stream replica death resumes the channel
+        byte-identically (``resumptions`` ticks). The channel is closed
+        with the terminal status before this returns, or failed before it
+        raises IF any token was published; an exception that never
+        touched it leaves it open for the caller's retry policy."""
         try:
-            return self._generate(prompt, int(max_new_tokens),
-                                  timeout_s=timeout_s or 120.0,
-                                  deadline_s=deadline_s, greedy=greedy,
-                                  tenant=tenant, priority=priority,
-                                  session=session)
-        finally:
+            if self.kv_index is not None:
+                self._kvtier_tls.meta = {}   # fresh per call
+            tenant = tenant or DEFAULT_TENANT
+            prompt = any_to_tokens(prompt)
+            self._check_prompt_len(prompt, int(max_new_tokens))
+            policy = self._slo_admit(tenant, prompt)
+            if policy is not None:
+                priority = policy.effective_priority(priority)
+            if self._draining:
+                raise self._shed_error(
+                    Unavailable,
+                    "gateway is draining; retry another endpoint",
+                    reason="draining", retry_after_s=None)
+            if not self._waiters.acquire(blocking=False):
+                raise self._shed_error(
+                    Unavailable,
+                    "all gateway waiter threads are busy; retry later",
+                    reason="waiters_busy", retry_after_s=0.25)
             with self._lock:
-                self._inflight -= 1
-            self._waiters.release()
+                self._inflight += 1
+            try:
+                return self._generate(prompt, int(max_new_tokens),
+                                      timeout_s=timeout_s or 120.0,
+                                      deadline_s=deadline_s, greedy=greedy,
+                                      tenant=tenant, priority=priority,
+                                      session=session, stream=stream)
+            finally:
+                with self._lock:
+                    self._inflight -= 1
+                self._waiters.release()
+        except BaseException as e:
+            from lzy_tpu_torch.channels.token_stream import fail_if_touched
+
+            fail_if_touched(stream, e)
+            raise
 
     def _shed_error(self, exc_type, msg: str, *, reason: str,
                     retry_after_s: Optional[float]):
@@ -217,10 +235,12 @@ class GatewayService:
                           retry_after_s=retry_after_s)
 
     def _finish_early(self, emitted, route, failovers, first_ttft_ms,
-                      status: str) -> dict:
+                      status: str, stream=None) -> dict:
         """A reply built without a terminal engine request: the deadline
         ran out between attempts (``cancelled``), or a failover landed
         exactly on the token budget (``ok``)."""
+        if stream is not None:
+            stream.close(status)
         _REQUESTS.inc(status=status)
         with self._lock:
             self._finished += 1
@@ -235,7 +255,8 @@ class GatewayService:
                   greedy: Optional[bool] = None,
                   tenant: str = DEFAULT_TENANT,
                   priority: Optional[int] = None,
-                  session: Optional[str] = None) -> dict:
+                  session: Optional[str] = None,
+                  stream=None) -> dict:
         t0 = self._clock.now()
         wall_deadline = t0 + timeout_s
         emitted: List[int] = []          # fenced: already emitted tokens
@@ -250,12 +271,18 @@ class GatewayService:
             deadline_left = self._remaining_deadline(t0, deadline_s)
             if deadline_left is not None and deadline_left <= 0:
                 return self._finish_early(emitted, route, failovers,
-                                          first_ttft_ms, "cancelled")
+                                          first_ttft_ms, "cancelled", stream)
             replica, routed_by, req = self._submit_routed(
                 prompt + emitted, remaining, t0=t0, deadline_s=deadline_s,
                 exclude=tried_after_failure, greedy=greedy, tenant=tenant,
                 priority=priority, session=session)
             route = (replica.id, routed_by)
+            if stream is not None:
+                # this attempt's tokens land at len(emitted) + i: a resumed
+                # attempt continues the channel where the dead one stopped
+                from lzy_tpu_torch.channels.token_stream import attach_request
+
+                attach_request(stream, req, len(emitted))
             if not req.wait(timeout=max(0.0,
                                         wall_deadline - self._clock.now())):
                 req.cancel()
@@ -273,6 +300,8 @@ class GatewayService:
                         f"request {req.id} failed: {req.error}")
                 # replica-scoped: fence what it emitted, resubmit elsewhere
                 emitted.extend(req.tokens)
+                if stream is not None:
+                    stream.note_resumption()
                 if not req.error.startswith(_CAPACITY_ERRORS):
                     self.fleet.health.record_failure(replica.id)
                     self.router.forget(replica.id)
@@ -303,6 +332,8 @@ class GatewayService:
                 # the conversation tail predicts the next step's locality
                 self.router.observe(replica.id, prompt + emitted,
                                     session=session)
+            if stream is not None:
+                stream.close(status)
             with self._lock:
                 self._finished += 1
             _REQUESTS.inc(status=status)
@@ -318,7 +349,7 @@ class GatewayService:
                 **self._reply_extras(),
             }
         return self._finish_early(emitted, route, failovers, first_ttft_ms,
-                                  "ok")
+                                  "ok", stream)
 
     def _remaining_deadline(self, t0: float,
                             deadline_s: Optional[float]) -> Optional[float]:

@@ -33,3 +33,16 @@ class Runtime(abc.ABC):
     @abc.abstractmethod
     def abort(self, workflow: "LzyWorkflow") -> None:
         """Teardown after a failed workflow."""
+
+    def auth_context(self) -> dict:
+        """The identity this runtime executes as: ``{"user": ...}`` for a
+        remote session, ``{}`` locally. Call factories that thread the
+        identity into op inputs (``llm.generate``'s tenant) read it at
+        registration time."""
+        return {}
+
+    def in_process(self) -> bool:
+        """True when op bodies run in the client's thread, where live
+        objects registered there (a token-stream channel) reach them.
+        ``llm.generate`` rejects a live channel on any other runtime."""
+        return False

@@ -5,7 +5,9 @@ No services and no network: calls run in dependency order in the
 current process, but the data path is the real one (args and results
 round-trip through the snapshot's serializers and storage). An op's
 exception is stored at the call's exception entry and re-raised for the
-client with the original traceback attached as a note.
+client with the original traceback attached as a note. A cache hit calls
+the op's ``__lzy_on_cache_hit__`` hook, and a result the op vetoes
+(``core.call.result_cacheable``) is stored marked not cacheable.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import traceback
 from typing import TYPE_CHECKING, Dict, List, Sequence, Set
 
+from lzy_tpu_torch.core.call import result_cacheable
 from lzy_tpu_torch.core.workflow import RemoteCallError
 from lzy_tpu_torch.runtime.api import Runtime
 from lzy_tpu_torch.utils.env import applied_env_vars
@@ -26,6 +29,9 @@ _LOG = get_logger(__name__)
 
 
 class LocalRuntime(Runtime):
+    def in_process(self) -> bool:
+        return True
+
     def start(self, workflow: "LzyWorkflow") -> None:
         _LOG.info("local execution of %s started", workflow.execution_id)
 
@@ -69,6 +75,16 @@ class LocalRuntime(Runtime):
         snapshot = workflow.snapshot
         if call.cache_settings.cache and self._cache_hit(workflow, call):
             _LOG.info("cache hit, skipping op %s", call.op_name)
+            # an op that counts its skips (llm_generate) opts in through a
+            # function attribute; the hook never fails the hit it reports
+            hook = getattr(call.signature.func, "__lzy_on_cache_hit__",
+                           None)
+            if hook is not None:
+                try:
+                    hook()
+                except Exception:  # noqa: BLE001 — observability only
+                    _LOG.exception("on-cache-hit hook failed for %s",
+                                   call.op_name)
             return
 
         args = tuple(snapshot.get(eid) for eid in call.arg_entry_ids)
@@ -92,8 +108,11 @@ class LocalRuntime(Runtime):
             )
             self._store_exception(workflow, call, e)
             raise RemoteCallError(call.op_name, e) from e
+        cacheable = True
+        if call.cache_settings.cache:
+            cacheable = result_cacheable(call.signature.func, result)
         for eid, value in zip(call.result_entry_ids, outputs):
-            snapshot.put(eid, value)
+            snapshot.put(eid, value, cacheable=cacheable)
 
     @staticmethod
     def _cache_hit(workflow: "LzyWorkflow", call: "LzyCall") -> bool:

@@ -52,6 +52,10 @@ class RemoteRuntime(Runtime):
         self._stream_logs = stream_logs
         self._printed_logs: Dict[str, int] = {}
 
+    def auth_context(self) -> dict:
+        """The session identity (never a credential)."""
+        return {"user": self._user}
+
     # -- Runtime ---------------------------------------------------------------
 
     def start(self, workflow: "LzyWorkflow") -> None:

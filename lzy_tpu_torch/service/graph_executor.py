@@ -10,8 +10,12 @@ back to its session's cache).
 Each task action's persisted state also records where the task's time
 went: ``alloc_s`` (allocate to VM ready) and, once the worker reports
 DONE, its ``timings`` (inputs, body, serialize, put, bytes, device
-hits); ``GraphExecutor.task_timings`` collects them per graph. The
-reference's llm-op frontier ordering is not ported.
+hits); ``GraphExecutor.task_timings`` collects them per graph.
+
+The ready frontier launches chain-hot tasks first: a task fed by a
+completed ``llm_generate`` step is the tool op of a ``generate -> tool
+-> generate`` chain, and its wall time is the window the workflow
+scheduler's parked-KV lease must survive.
 """
 
 from __future__ import annotations
@@ -209,9 +213,20 @@ class _ExecGraphAction(OperationRunner):
             raise RuntimeError("graph stopped by user")
 
         running = sum(1 for i in tasks.values() if i["status"] == RUNNING)
-        for tid, info in tasks.items():
-            if info["status"] != WAITING or \
-                    running >= self.svc.max_running_tasks:
+        from lzy_tpu_torch.llm.op import LLM_OP_NAME
+
+        def chain_hot(tid: str) -> bool:
+            return any(tasks[d]["status"] == COMPLETED
+                       and tasks[d].get("name") == LLM_OP_NAME
+                       for d in self.state["deps"][tid])
+
+        # chain-hot first; a stable sort keeps registration order in ties
+        frontier = sorted((tid for tid, info in tasks.items()
+                           if info["status"] == WAITING),
+                          key=lambda tid: not chain_hot(tid))
+        for tid in frontier:
+            info = tasks[tid]
+            if running >= self.svc.max_running_tasks:
                 continue
             if all(tasks[d]["status"] == COMPLETED for d in self.state["deps"][tid]):
                 if not self.svc._try_admit(user):

@@ -140,6 +140,7 @@ def build_gateway_service(
     tenants=None,
     device: DeviceLike = "cuda",
     cfg: Optional[LlamaConfig] = None,
+    temperature: float = 0.0,
 ):
     """The serving fleet gateway: ``replicas`` engines over one shared
     model behind one ``generate`` endpoint, with prefix-affinity routing
@@ -155,8 +156,10 @@ def build_gateway_service(
     decoding; ``warm_start`` warms each replica up at boot;
     ``prefill_budget`` bounds prefill tokens per round; ``tenants`` (a
     ``TenantTable``) turns on rate limits at the gateway and WFQ, queue
-    caps and KV quotas in every replica. ``device`` and ``cfg`` (an
-    override of the named preset) are the port's. The reference's
+    caps and KV quotas in every replica. ``device``, ``cfg`` (an
+    override of the named preset) and ``temperature`` (the replicas'
+    sampling temperature for requests that are not pinned greedy; 0 is
+    greedy) are the port's. The reference's
     checkpoint, storage-tier, sharded-replica, allocator and journal
     options wait for their slices (ROADMAP queue 1)."""
     from lzy_tpu_torch.gateway import GatewayService, GlobalKVIndex, \
@@ -179,7 +182,7 @@ def build_gateway_service(
     common = dict(slots=slots, max_queue=max_queue, eos_token=eos_token,
                   prefill_chunk=prefill_chunk, seed=seed,
                   spec_tokens=spec_tokens, prefill_budget=prefill_budget,
-                  tenants=tenants)
+                  tenants=tenants, temperature=temperature)
 
     def engine_factory():
         if paged:

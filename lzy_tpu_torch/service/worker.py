@@ -37,6 +37,7 @@ from typing import Any, Dict, List, Optional
 
 from lzy_tpu_torch.channels.manager import (
     CONSUMER, PRODUCER, ChannelFailed, ChannelManager)
+from lzy_tpu_torch.core.call import result_cacheable
 from lzy_tpu_torch.serialization import SerializerRegistry, default_registry
 from lzy_tpu_torch.serialization.basic import pickler
 from lzy_tpu_torch.service.graph import TaskDesc
@@ -238,8 +239,9 @@ class WorkerAgent:
                 f"op {task.name}() returned {len(outputs)} values, "
                 f"declared {n_out}"
             )
+        cacheable = result_cacheable(func, result)
         for ref, value in zip(task.outputs, outputs):
-            self._write_entry(ref, value, timings)
+            self._write_entry(ref, value, timings, cacheable=cacheable)
             self._channels.transfer_completed(ref.id)
 
     # -- data plane ------------------------------------------------------------
@@ -260,10 +262,13 @@ class WorkerAgent:
         finally:
             src.close()
 
-    def _write_entry(self, ref, value: Any, timings: Dict[str, Any]) -> None:
+    def _write_entry(self, ref, value: Any, timings: Dict[str, Any], *,
+                     cacheable: bool = True) -> None:
         """Offer the value to the device peer, then serialize it and write
         the storage peer and the ``.meta`` sidecar (every output, device
-        resident or not: the storage copy is the durable one)."""
+        resident or not: the storage copy is the durable one). A result
+        its op vetoed (``core.call.result_cacheable``) is marked so in
+        the sidecar: stored for this execution, never a cache hit."""
         self._channels.device.offer(ref.id, value)
         t0 = time.perf_counter()
         serializer = self._serializers.find_by_instance(value)
@@ -273,12 +278,15 @@ class WorkerAgent:
         t1 = time.perf_counter()
         self._storage.write_bytes(ref.uri, data)
         scheme = serializer.data_scheme(value)
-        doc = json.dumps({
+        meta = {
             "hash": hashing.hash_bytes(data),
             "data_format": scheme.data_format,
             "schema_content": scheme.schema_content,
             "meta": scheme.meta,
-        }).encode("utf-8")
+        }
+        if not cacheable:
+            meta["cacheable"] = False
+        doc = json.dumps(meta).encode("utf-8")
         self._storage.write_bytes(ref.uri + ".meta", doc)
         timings["serialize_s"] += t1 - t0
         timings["put_s"] += time.perf_counter() - t1

@@ -239,9 +239,19 @@ class WorkflowService:
 
         # check cache: drop tasks whose outputs are already durable
         remaining = [t for t in graph.tasks if not self._cached(t)]
-        dropped = len(graph.tasks) - len(remaining)
+        dropped = {t.id for t in graph.tasks} - {t.id for t in remaining}
         if dropped:
-            _LOG.info("cache drops %d/%d tasks", dropped, len(graph.tasks))
+            _LOG.info("cache drops %d/%d tasks", len(dropped),
+                      len(graph.tasks))
+            llm_drops = sum(1 for t in graph.tasks if t.id in dropped
+                            and t.name in ("llm_generate",
+                                           "llm_generate_batch"))
+            if llm_drops:
+                # a cache-dropped generation never touches the fleet (the
+                # llm metrics module is a leaf: no import cycle)
+                from lzy_tpu_torch.llm.metrics import CACHED_HITS
+
+                CACHED_HITS.inc(llm_drops)
 
         # create channels: every entry of the remaining tasks gets one;
         # channels for inputs that already exist in storage open completed
@@ -265,16 +275,18 @@ class WorkflowService:
         return graph_op_id
 
     def _cached(self, task) -> bool:
-        """Every output and its sidecar are in storage, and the sidecar
-        reads. (The reference's per-result cache veto comes with the
-        llm-op surface, its only writer.)"""
+        """Every output and its sidecar are in storage, the sidecar
+        reads, and no output is marked not cacheable (an op-vetoed
+        result, such as a deadline-truncated generation)."""
         for o in task.outputs:
             if not (self._storage.exists(o.uri)
                     and self._storage.exists(o.uri + ".meta")):
                 return False
             try:
-                json.loads(self._storage.read_bytes(o.uri + ".meta"))
+                doc = json.loads(self._storage.read_bytes(o.uri + ".meta"))
             except Exception:  # noqa: BLE001 — unreadable meta: no hit
+                return False
+            if doc.get("cacheable", True) is False:
                 return False
         return True
 

@@ -946,6 +946,14 @@ class InferenceEngine:
         """Record one token; finish and free the slot on EOS or the
         length limit."""
         req.tokens.append(token)
+        sink = req.token_sink
+        if sink is not None:
+            # a stream's failure costs the stream, never the engine loop
+            try:
+                sink(req)
+            except Exception:  # noqa: BLE001 — stream-side failure
+                _LOG.exception("token sink failed for %s; detaching", req.id)
+                req.token_sink = None
         self._tokens_out += 1
         self._round_tokens[req.tenant] = \
             self._round_tokens.get(req.tenant, 0) + 1

@@ -141,6 +141,10 @@ class Request:
             if deadline_s is not None else None)
         self.first_token_at: Optional[float] = None
         self.finished_at: Optional[float] = None
+        #: token streaming (``channels/token_stream.attach_request``): the
+        #: engine calls ``token_sink(request)`` after each emitted token,
+        #: guarded, so a consumer bug never kills the decode loop
+        self.token_sink = None
         self._done = self._clock.event()
         # WFQ bookkeeping (owned by RequestQueue)
         self._vstart = 0.0

@@ -88,10 +88,15 @@ class Snapshot:
         with self._lock:
             self._entries[entry_id].storage_uri = uri
 
-    def put(self, entry_id: str, value: Any) -> SnapshotEntry:
+    def put(self, entry_id: str, value: Any, *,
+            cacheable: bool = True) -> SnapshotEntry:
         """Serialize into a spooled temporary stream (on disk past 64 MB),
         then stream it to storage while hashing: a checkpoint-sized value
-        never holds more than one serialized copy in memory."""
+        never holds more than one serialized copy in memory.
+
+        ``cacheable=False`` stores the object for this execution's
+        consumers but marks its sidecar so that no later execution takes
+        it as a cache hit (an op's ``__lzy_result_cacheable__`` veto)."""
         entry = self.get_entry(entry_id)
         serializer = self._serializers.find_by_instance(value)
         with tempfile.SpooledTemporaryFile(max_size=64 << 20) as tmp:
@@ -101,7 +106,7 @@ class Snapshot:
             self._client.write(entry.storage_uri, reader)
             entry.hash = reader.hexdigest()
         entry.data_scheme = serializer.data_scheme(value)
-        self._write_meta(entry)
+        self._write_meta(entry, cacheable=cacheable)
         return entry
 
     def get(self, entry_id: str) -> Any:
@@ -110,7 +115,8 @@ class Snapshot:
         with contextlib.closing(self._client.open_read(entry.storage_uri)) as src:
             return serializer.deserialize(src, entry.typ)
 
-    def _write_meta(self, entry: SnapshotEntry) -> None:
+    def _write_meta(self, entry: SnapshotEntry, *,
+                    cacheable: bool = True) -> None:
         scheme = entry.data_scheme
         doc = {
             "hash": entry.hash,
@@ -118,12 +124,16 @@ class Snapshot:
             "schema_content": scheme.schema_content if scheme else None,
             "meta": scheme.meta if scheme else {},
         }
+        if not cacheable:
+            doc["cacheable"] = False
         self._client.write_bytes(
             entry.storage_uri + ".meta", json.dumps(doc).encode("utf-8"))
 
     def try_restore_entry(self, entry_id: str) -> bool:
         """Rehydrate scheme and hash from the sidecar for an entry whose
-        object already exists in storage (a cache hit). False if absent."""
+        object already exists in storage (a cache hit). False if absent,
+        or if the object is marked not cacheable: scheme and hash are
+        restored all the same, so this execution's consumers read it."""
         entry = self.get_entry(entry_id)
         meta_uri = entry.storage_uri + ".meta"
         if not self._client.exists(entry.storage_uri) or not self._client.exists(meta_uri):
@@ -136,7 +146,7 @@ class Snapshot:
                 schema_content=doc.get("schema_content") or "",
                 meta=doc.get("meta") or {},
             )
-        return True
+        return doc.get("cacheable", True) is not False
 
     def _resolve_serializer(self, entry: SnapshotEntry):
         if entry.data_scheme is not None:

@@ -168,4 +168,4 @@ def test_port_registers_only_the_slice_fault_points():
     assert CHAOS.points() == [
         "allocator.heartbeat", "disagg.stage", "engine.admit", "engine.prefill", "engine.step",
         "gateway.dispatch", "gateway.health", "kv.fetch", "kv.publish",
-        "kvtier.demote", "kvtier.import", "slo.admit"]
+        "kvtier.demote", "kvtier.import", "llm.dispatch", "slo.admit"]
